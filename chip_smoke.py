@@ -14,7 +14,19 @@
    launch counts set to 0 just before and read just after; then runs the
    f32 "highest" path with and without the kernel, and the fused model
    against the plain ``nn.Module`` ESPNet on a small input;
-5. prints one JSON line of kernel results and, last, one JSON status line.
+5. holds K3 (greedy NMS) against ``nms_plain`` at both of the detector's
+   NMS shapes, on seeded boxes with tied scores and on the real proposals
+   of one window batch (indices and counts must be equal), and times both;
+6. drives the second path at full width -- the ResNet-50-C4 Faster R-CNN
+   window detector (``FasterRCNNConfig()``, bf16, random seeded weights
+   with calibrated BN statistics) over a seeded level-3 pyramid stub at
+   the e2e operating point (2000 um windows, overlap 0.1, 0.2265 um/px,
+   1104x1104 px windows, batch 8: 20 windows in 3 batches) -- with the K3
+   count set to 0 just before and read just after; checks the detection
+   output contract; compares the scan with the plain NMS in turns; then
+   runs one f32 batch (TF32 off) with and without the kernel, which must
+   agree exactly, and traces one bf16 batch;
+7. prints one JSON line of kernel results and, last, one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
@@ -31,8 +43,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from glomeruli_segmentation_tpu_torch.convert.detector_import import (
+    random_detector_state,
+)
 from glomeruli_segmentation_tpu_torch.convert.espnet_import import (
     random_state_dict,
+)
+from glomeruli_segmentation_tpu_torch.models.faster_rcnn import (
+    FasterRCNNConfig,
+    build_anchors,
 )
 from glomeruli_segmentation_tpu_torch.models.espnet import create_espnet
 from glomeruli_segmentation_tpu_torch.models.espnet_fused import FusedESPNet
@@ -41,6 +60,11 @@ from glomeruli_segmentation_tpu_torch.ops.esp_block import (
     esp_block_fused,
     esp_block_plain,
     pack_esp_weights,
+)
+from glomeruli_segmentation_tpu_torch.ops.nms import nms, nms_plain, premask
+from glomeruli_segmentation_tpu_torch.pipeline.detect import (
+    GlomusDetector,
+    TorchDetectorBackend,
 )
 from glomeruli_segmentation_tpu_torch.pipeline.fused import (
     EnsembleConfig,
@@ -59,6 +83,18 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # main-path shape of every level-3 block: crop batch 32, 512x1024 / 8
 K1_SHAPE = (32, 64, 128, 128)
+# the detector's NMS problems per window batch of 8: (P, N, k, IoU)
+K3_SHAPES = {"rpn": (8, 2000, 300, 0.7), "second": (8, 300, 100, 0.6)}
+# float32 operations per box in a greedy step that emits a box: the IoU
+# (2 min, 2 max, 2 sub, 2 clamp, mul, add, sub, div), the threshold and
+# winner compares, the suppression select, and the argmax compare
+K3_OPS_PER_BOX = 14
+# the e2e operating point: 2000 um windows, overlap 0.1, 40x at
+# 0.2265 um/px, level 3 (downsample 8) -> ceil(2000 / 0.2265 / 8) = 1104 px
+DET_WINDOW_UM, DET_OVERLAP, DET_MPP, DET_BATCH = 2000, 0.1, 0.2265, 8
+DET_WINDOW_PX = 1104
+# level-3 size of the smoke slide (level 0 is 35328 x 26496): 5 x 4 windows
+DET_LEVEL3_HW = (3312, 4416)
 
 
 def check(ok: bool, message: str) -> None:
@@ -209,47 +245,93 @@ def segment(ensemble, slide, boxes):
 def _kernel_group(name: str) -> str:
     if "esp_reduce_kernel" in name or "esp_branch_kernel" in name:
         return "K1 esp_block"
+    if "nms_kernel" in name:
+        return "K3 nms"
     low = name.lower()
     if low.startswith("memcpy") or low.startswith("memset"):
         return "copies"
+    # cuDNN's convolutions; cuBLAS (nvjet, cutlass) runs some 1x1 convs and
+    # the box head's Linear layers
     if any(k in low for k in ("conv", "xmma", "implicit", "cudnn", "gemm",
-                              "dgrad", "wgrad", "winograd", "fft")):
-        return "cuDNN conv"
-    return "other (elementwise, gathers, softmax, argmax)"
+                              "dgrad", "wgrad", "winograd", "fft", "nvjet",
+                              "cutlass")):
+        return "cuDNN/cuBLAS conv"
+    if "index" in low or "gather" in low:
+        return "gathers"
+    return "other (elementwise, sort, softmax, argmax)"
 
 
-def profile_slide(ensemble, slide, boxes) -> dict:
-    """One traced segment_slide, apart from the timed runs: device time by
-    kernel group and the device's idle share of the traced wall time."""
+def trace(fn) -> dict:
+    """One traced run of ``fn()``, apart from the timed runs: device time
+    by kernel group and the device's idle share of the traced wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    seg = FusedSlideSegmenter(ensemble)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        seg.segment_slide(slide, boxes)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    kernels, ops = {}, {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        kernels[e.key] = (us / 1e3, e.count)
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.key] = (us / 1e3, e.count)
+        elif e.key.startswith("aten::") and us > 0:
+            # device time of the kernels this operator launched itself
+            ops[e.key] = (us / 1e3, e.count)
     busy_ms = sum(ms for ms, _ in kernels.values())
     groups = {}
     for name, (ms, _) in kernels.items():
         group = _kernel_group(name)
         groups[group] = groups.get(group, 0.0) + ms
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
             "groups_ms": groups,
-            "top": [[name[:90], ms, count] for name, (ms, count) in top]}
+            "top": [[name[:90], ms, count] for name, (ms, count) in top],
+            "top_ops": [[name, ms, count] for name, (ms, count) in top_ops]}
+
+
+def print_trace(title: str, prof: dict, name_power: str) -> None:
+    print(f"profile {title} (traced run): wall {prof['wall_ms']:.1f} ms, "
+          f"device busy {prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}; by group (ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      sorted(prof["groups_ms"].items(), key=lambda kv: -kv[1]))
+          + f" | {name_power}")
+    for kname, ms, count in prof["top"]:
+        print(f"  {ms:9.2f} ms {count:6d}x  {kname}")
+    print("  by the operator that launched the kernels: " + ", ".join(
+        f"{name} {ms:.2f} ms/{count}" for name, ms, count in prof["top_ops"]))
+
+
+def conv_flops(model, images, anchors) -> float:
+    """Operations of every convolution and linear layer in one detect call,
+    counted from the shapes they see (2 per multiply-add)."""
+    total = [0]
+
+    def hook(module, inputs, out):
+        if isinstance(module, torch.nn.Conv2d):
+            k = module.in_channels // module.groups * \
+                module.kernel_size[0] * module.kernel_size[1]
+        else:
+            k = module.in_features
+        total[0] += 2 * out.numel() * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        model.detect(images, anchors)
+    finally:
+        for h in handles:
+            h.remove()
+    return float(total[0])
 
 
 def outside_boxes_is_background(canvas, boxes) -> bool:
@@ -257,6 +339,308 @@ def outside_boxes_is_background(canvas, boxes) -> bool:
     for x1, y1, x2, y2, _ in boxes:
         mask[y1 // 8: y2 // 8, x1 // 8: x2 // 8] = True
     return bool((canvas[~mask] == 0).all())
+
+
+# ---------------- kernel K3: greedy NMS ----------------
+def seeded_nms_problem(seed: int, p: int, n: int):
+    """P sets of N overlapping boxes in a 1104-px window; scores on a grid
+    of 1/256, so equal scores are common and the tie order is exercised."""
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(0, DET_WINDOW_PX, (p, n, 2))
+    sizes = rng.uniform(16, 400, (p, n, 2))
+    boxes = np.concatenate([centers - sizes / 2, centers + sizes / 2], -1)
+    scores = np.round(rng.uniform(0, 1, (p, n)) * 256) / 256
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy(scores.astype(np.float32)).cuda())
+
+
+def nms_case(boxes, scores, k: int, thr: float,
+             score_threshold: float = float("-inf")) -> dict:
+    """K3 against nms_plain on one batch of problems: equal indices and
+    counts; both timed in turns; the bound from what this input needs."""
+    p, n = scores.shape
+    idx, num = nms(boxes, scores, k, thr, score_threshold)
+    torch.cuda.synchronize()
+    masked = premask(scores, score_threshold)
+    want_idx, want_num = nms_plain(boxes, masked, k, thr)
+    torch.cuda.synchronize()
+    check(torch.equal(idx, want_idx) and torch.equal(num, want_num),
+          f"K3 ({p}, {n}) -> {k}: indices differ from nms_plain at "
+          f"{int((idx != want_idx).sum())} of {idx.numel()} slots")
+    times = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        if name == "kernel":
+            times[name].append(cuda_ms(
+                lambda: nms(boxes, scores, k, thr, score_threshold)))
+        else:
+            times[name].append(cuda_ms(
+                lambda: nms_plain(boxes, masked, k, thr), iters=5))
+    valid = num.long().cpu()
+    # a step that emits a box runs the whole IoU pass; the step that finds
+    # no live box (when fewer than k are emitted) only the argmax
+    ops = int((valid * n * K3_OPS_PER_BOX + (valid < k).long() * n).sum())
+    nbytes = p * n * (16 + 4) + p * k * 4 + p * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return {"shape": [p, n, k, thr], "emitted": valid.tolist(),
+            "max_abs_err": float((idx - want_idx).abs().max()),
+            "ms": float(np.mean(times["kernel"])),
+            "plain_ms": float(np.mean(times["plain"])),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kbytes": nbytes / 1e3, "mops": ops / 1e6}
+
+
+def print_nms_case(label: str, r: dict, name_power: str) -> None:
+    p, n, k, thr = r["shape"]
+    print(f"K3 nms {label} ({p}, {n}) -> {k} IoU {thr}: indices and counts "
+          f"equal to nms_plain, emitted {min(r['emitted'])}.."
+          f"{max(r['emitted'])}; kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us by "
+          f"{r['bound_by']} ({r['kbytes']:.1f} kB, {r['mops']:.1f} M ops); "
+          f"library: no single PyTorch call computes greedy NMS | "
+          f"{name_power}", flush=True)
+
+
+# ---------------- the detector slice ----------------
+class PyramidStub:
+    """An in-memory slide whose pyramid holds level 3 only (downsample 8,
+    RGB uint8); level 0 is 8x its size.  Pixels outside read white."""
+
+    def __init__(self, level3: np.ndarray):
+        self.level3 = level3
+        self.level_count = 4
+        self.level_downsamples = (1.0, 2.0, 4.0, 8.0)
+        self.dimensions = (level3.shape[1] * 8, level3.shape[0] * 8)
+        self.properties = {"openslide.mpp-x": str(DET_MPP),
+                           "openslide.mpp-y": str(DET_MPP),
+                           "openslide.objective-power": "40"}
+
+    def read_region_array(self, location, level, size):
+        check(level == 3, "PyramidStub has level 3 only")
+        x0, y0 = int(location[0] / 8), int(location[1] / 8)
+        (w, h), img = size, self.level3
+        out = np.full((h, w, 3), 255, np.uint8)
+        xs, ys = max(x0, 0), max(y0, 0)
+        xe, ye = min(x0 + w, img.shape[1]), min(y0 + h, img.shape[0])
+        if xe > xs and ye > ys:
+            out[ys - y0: ye - y0, xs - x0: xe - x0] = img[ys:ye, xs:xe]
+        return out
+
+
+def pyramid_slide(seed: int) -> PyramidStub:
+    """A seeded PAS-like level 3: pink noise, dark round glomerulus-sized
+    blobs (radius 30 to 80 px at 1.8 um/px)."""
+    rng = np.random.RandomState(seed)
+    h, w = DET_LEVEL3_HW
+    img = np.empty((h, w, 3), np.uint8)
+    for row in range(0, h, 512):
+        band = img[row: row + 512]
+        noise = rng.randint(-12, 12, band.shape, dtype=np.int16)
+        band[:] = np.clip(noise + np.asarray((230, 205, 215), np.int16),
+                          0, 255)
+    for _ in range(60):
+        r = int(rng.randint(30, 81))
+        cy, cx = int(rng.randint(r, h - r)), int(rng.randint(r, w - r))
+        yy, xx = np.mgrid[-r:r, -r:r]
+        patch = img[cy - r: cy + r, cx - r: cx + r]
+        patch[yy ** 2 + xx ** 2 < r * r] = (170, 110, 150)
+        patch[yy ** 2 + xx ** 2 < (r // 2) ** 2] = (140, 80, 120)
+    return PyramidStub(img)
+
+
+class RecordingBackend:
+    """Forwards the async pair to a backend and keeps what it reads."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.batch_size = backend.batch_size
+        self.results = []
+
+    def detect_batch_submit(self, images):
+        return self.backend.detect_batch_submit(images)
+
+    def read_detections(self, handle):
+        result = self.backend.read_detections(handle)
+        self.results.append(result)
+        return result
+
+
+def check_detections(results, max_detections: int) -> int:
+    """The frozen-graph output contract; returns the number of detections."""
+    total = 0
+    for boxes, scores, classes, num in results:
+        check(bool(np.isfinite(boxes).all() and np.isfinite(scores).all()),
+              "non-finite detections")
+        check(bool((boxes >= 0).all() and (boxes <= 1).all()),
+              "boxes outside [0, 1]")
+        check(bool((boxes[..., 0] <= boxes[..., 2]).all()
+                   and (boxes[..., 1] <= boxes[..., 3]).all()),
+              "a box with ymin > ymax or xmin > xmax")
+        check(bool((np.diff(scores, axis=1) <= 0).all()),
+              "scores not sorted descending")
+        check(bool((num <= max_detections).all() and (num >= 0).all()),
+              f"num_detections {num}")
+        check(bool((classes == 1).all()), "a class other than 1")
+        total += int(num.sum())
+    return total
+
+
+def scan(detector, backend, slide, path: Path):
+    """One timed scan_slide; returns (seconds, K3 launches, CSV rows)."""
+    torch.cuda.synchronize()
+    nms.launches = 0
+    t0 = time.perf_counter()
+    with open(path, "w") as out:
+        detector.scan_slide(backend, slide, "smoke", "S1", "S1.ndpi", out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return seconds, nms.launches, len(path.read_text().splitlines())
+
+
+def detector_phases(name_power: str):
+    """K3 against its plain version, the detector slice at full width, the
+    f32 kernel/plain comparison and a traced batch.  Returns (the K3
+    cases, K3 launches of the timed scan)."""
+    # ---- the detector: weights, one window batch, K3 against plain ----
+    det_cfg = FasterRCNNConfig()
+    t0 = time.perf_counter()
+    det_state = random_detector_state(0, det_cfg)
+    print(f"detector: ResNet-50-C4 Faster R-CNN, {det_cfg}; random weights "
+          f"(seed 0), BN calibrated on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    backend = TorchDetectorBackend(det_state, det_cfg, batch_size=DET_BATCH)
+    slide3 = pyramid_slide(seed=1)
+    step = int(DET_WINDOW_UM / DET_MPP * (1 - DET_OVERLAP))
+    images = np.stack([
+        slide3.read_region_array((step * i, step * j), 3,
+                                 (DET_WINDOW_PX, DET_WINDOW_PX))
+        for j in range(2) for i in range(5)][:DET_BATCH])
+    backend.detect_batch(images)  # warm-up, not counted
+    model = backend.model.with_image_size(DET_WINDOW_PX, DET_WINDOW_PX)
+    anchors = build_anchors(model.config).cuda()
+    with torch.no_grad():
+        out = model(torch.from_numpy(images).cuda(), anchors)
+        rpn_boxes, rpn_scores = model.rpn_candidates(
+            out["rpn_objectness"], out["rpn_deltas"], anchors)
+        cand_boxes, cand_scores = model.detection_candidates(
+            out["proposals"], out["class_scores"], out["box_deltas"])
+    del out
+    check(tuple(rpn_scores.shape) == K3_SHAPES["rpn"][:2]
+          and tuple(cand_scores.shape) == K3_SHAPES["second"][:2],
+          f"NMS problems {tuple(rpn_scores.shape)}, "
+          f"{tuple(cand_scores.shape)}")
+    k3 = {}
+    for label, (p_, n_, k_, thr) in K3_SHAPES.items():
+        k3[f"{label} seeded"] = nms_case(*seeded_nms_problem(7, p_, n_),
+                                         k_, thr)
+    k3["rpn proposals"] = nms_case(rpn_boxes, rpn_scores,
+                                   det_cfg.post_nms_top_n,
+                                   det_cfg.rpn_nms_threshold)
+    k3["second candidates"] = nms_case(cand_boxes, cand_scores,
+                                       det_cfg.max_detections,
+                                       det_cfg.second_nms_threshold,
+                                       det_cfg.score_threshold)
+    # the frozen-graph backend's pre_nms_top_n (not on this path yet)
+    k3["6000 seeded"] = nms_case(*seeded_nms_problem(8, 2, 6000), 300, 0.7)
+    for label, r in k3.items():
+        print_nms_case(label, r, name_power)
+
+    # ---- the detector slice at full width, bf16 ----
+    detector = GlomusDetector(
+        "OPT_PAS", "", str(WORK), str(WORK / "detect"), "_smoke",
+        window_size=DET_WINDOW_UM, overlap_ratio=DET_OVERLAP,
+        # random weights carry no confidence: every detection is written
+        conf_threshold=0.0, batch_size=DET_BATCH)
+    recorder = RecordingBackend(backend)
+    torch.cuda.reset_peak_memory_stats()
+    det_s, det_launches, det_rows = scan(detector, recorder, slide3,
+                                         WORK / "detect_kernel.csv")
+    det_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    geometry = detector.calc_window_size()
+    check(geometry[2:] == (5, 4, DET_WINDOW_PX, DET_WINDOW_PX),
+          f"window geometry {geometry}")
+    n_windows = geometry[2] * geometry[3]
+    det_batches = math.ceil(n_windows / DET_BATCH)
+    check(len(recorder.results) == det_batches,
+          f"{len(recorder.results)} batches read, want {det_batches}")
+    check(det_launches == 2 * det_batches,
+          f"K3 launched {det_launches} times, want {2 * det_batches}")
+    n_det = check_detections(recorder.results, det_cfg.max_detections)
+    top = max(float(r[1].max()) for r in recorder.results)
+    print(f"detector slice bf16 batch {DET_BATCH}: {n_windows} windows of "
+          f"{DET_WINDOW_PX}x{DET_WINDOW_PX} in {det_batches} batches, "
+          f"{det_s:.4f} s/slide, {n_windows / det_s:.2f} windows/s, K3 "
+          f"launches {det_launches}, peak memory {det_peak_gb:.3f} GB, "
+          f"{n_det} detections (top score {top:.4f}), {det_rows} CSV rows | "
+          f"{name_power}", flush=True)
+    check(n_det > 0 and det_rows > 0, "no detections")
+    plain_backend = TorchDetectorBackend(det_state, det_cfg,
+                                         batch_size=DET_BATCH,
+                                         kernel_nms=False)
+    plain_backend.detect_batch(images)  # warm-up
+    turns = {"kernel": [det_s], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        secs, n_launch, _ = scan(
+            detector, backend if name == "kernel" else plain_backend, slide3,
+            WORK / f"detect_{name}.csv")
+        check(n_launch == (det_launches if name == "kernel" else 0),
+              f"{name} scan launched K3 {n_launch} times")
+        turns[name].append(secs)
+    same_rows = [ln.split(",")[5:] for ln in (
+        WORK / "detect_kernel.csv").read_text().splitlines()] == \
+        [ln.split(",")[5:] for ln in (
+            WORK / "detect_plain.csv").read_text().splitlines()]
+    print("detector slice bf16 s/slide in turns: K3 "
+          + ", ".join(f"{s_:.4f}" for s_ in turns["kernel"])
+          + f" (median {np.median(turns['kernel']):.4f}); plain NMS "
+          + ", ".join(f"{s_:.4f}" for s_ in turns["plain"])
+          + f" (median {np.median(turns['plain']):.4f}); CSV boxes and "
+          f"scores equal: {same_rows} | {name_power}", flush=True)
+    del plain_backend
+
+    # ---- f32, TF32 off: detections with and without K3 are identical ----
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    f32_runs = {}
+    for kernel_nms in (True, False):
+        b32 = TorchDetectorBackend(det_state, det_cfg, batch_size=DET_BATCH,
+                                   compute_dtype="float32",
+                                   kernel_nms=kernel_nms)
+        nms.launches = 0
+        t0 = time.perf_counter()
+        f32_runs[kernel_nms] = b32.detect_batch(images)
+        f32_runs[kernel_nms] += (time.perf_counter() - t0, nms.launches)
+        del b32
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = saved
+    same = all(np.array_equal(a, b) for a, b in
+               zip(f32_runs[True][:4], f32_runs[False][:4]))
+    print(f"detector f32 (TF32 off), one batch of {DET_BATCH}: K3 "
+          f"{f32_runs[True][4]:.4f} s ({f32_runs[True][5]} launches), plain "
+          f"NMS {f32_runs[False][4]:.4f} s ({f32_runs[False][5]} launches); "
+          f"detections identical: {same}; detections per window "
+          f"{f32_runs[True][3].astype(int).tolist()} | {name_power}",
+          flush=True)
+    check(f32_runs[True][5] == 2 and f32_runs[False][5] == 0,
+          "f32 launch counts")
+    check(same, "f32 detections differ with and without K3")
+
+    prof = trace(lambda: backend.detect_batch(images))
+    print_trace(f"bf16 detector batch ({DET_BATCH} windows)", prof,
+                name_power)
+    flops = conv_flops(model, torch.from_numpy(images).cuda(), anchors)
+    conv_ms = prof["groups_ms"].get("cuDNN/cuBLAS conv", 0.0)
+    rate = f"{flops / conv_ms / 1e9:.1f} TFLOP/s" if conv_ms else \
+        "no convolution time traced"
+    print(f"detector convolutions and linear layers: {flops / 1e12:.3f} "
+          f"TFLOP per batch of {DET_BATCH}; at the traced {conv_ms:.2f} ms "
+          f"{rate} | {name_power}", flush=True)
+    return k3, det_launches
 
 
 def main() -> int:
@@ -348,15 +732,9 @@ def main() -> int:
           + f" (median {np.median(turns['plain']):.4f}); canvas pixels equal "
           f"to the first kernel run: kernel {min(same['kernel']):.6f}, plain "
           f"{min(same['plain']):.6f} | {name_power}", flush=True)
-    prof = profile_slide(ensemble, slide, boxes)
-    print(f"profile bf16 slide (traced run): wall {prof['wall_ms']:.1f} ms, "
-          f"device busy {prof['device_busy_ms']:.1f} ms, idle share "
-          f"{prof['idle_share']:.3f}; by group (ms): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in
-                      sorted(prof["groups_ms"].items(), key=lambda kv: -kv[1]))
-          + f" | {name_power}")
-    for kname, ms, count in prof["top"]:
-        print(f"  {ms:9.2f} ms {count:6d}x  {kname}")
+    print_trace("bf16 slide", trace(
+        lambda: FusedSlideSegmenter(ensemble).segment_slide(slide, boxes)),
+        name_power)
     del ensemble, plain_l3
 
     # ---- f32 "highest": kernel path against the plain level 3 ----
@@ -394,8 +772,11 @@ def main() -> int:
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = tf32
 
+    k3, det_launches = detector_phases(name_power)
+
     bf16 = k1[torch.bfloat16]
     f32r = k1[torch.float32]
+    k3_main = k3["rpn seeded"]
     print(json.dumps({"kernels": [{
         "name": "esp_block_fused", "route": "cuda",
         "source": "glomeruli_segmentation_tpu_torch/csrc/esp_block.cu",
@@ -407,6 +788,20 @@ def main() -> int:
         "library_ms": None, "dtype": "bfloat16", "shape": list(K1_SHAPE),
         "f32": {k: f32r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by")},
+    }, {
+        "name": "nms", "route": "cuda",
+        "source": "glomeruli_segmentation_tpu_torch/csrc/nms.cu",
+        "replaces": "glomeruli_segmentation_tpu/ops/pallas/nms_pallas.py:27 "
+                    "(_nms_kernel)",
+        "launches": det_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+        "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+        "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+        "library_ms": None, "dtype": "float32",
+        "shape": k3_main["shape"],
+        "cases": {label: {k: r[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+            for label, r in k3.items()},
     }]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel source of the port, built together by build_all()
-SOURCES = ("esp_block",)
+SOURCES = ("esp_block", "nms")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

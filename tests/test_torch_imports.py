@@ -1,0 +1,34 @@
+"""The port imports neither JAX nor the JAX package: every module of
+``glomeruli_segmentation_tpu_torch`` and ``chip_smoke.py`` import in a
+process where ``import jax`` fails."""
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+GUARD = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any "import jax" now raises
+import glomeruli_segmentation_tpu_torch as port
+names = [port.__name__] + [m.name for m in pkgutil.walk_packages(
+    port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+leaked = sorted(m for m in sys.modules
+                if m == "glomeruli_segmentation_tpu"
+                or m.startswith("glomeruli_segmentation_tpu."))
+print(len(names), "modules")
+assert not leaked, leaked
+assert "torch" in sys.modules
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    count = int(proc.stdout.split()[0])
+    # the package, its subpackages and the detector slice's modules
+    assert count >= 20, proc.stdout
