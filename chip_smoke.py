@@ -6,14 +6,19 @@
    CUDA versions and both TF32 switches;
 2. builds every kernel of the port from ``glomeruli_segmentation_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) into build/torch_kernels/;
-3. holds each kernel against its plain PyTorch version at the main path's
-   shapes, in float32 with TF32 off and in bfloat16, and times both;
+3. holds K1 (the fused ESP block) and K2 (the ESP block on the padded
+   layout, with zero halo columns and pad channels checked) against their
+   plain PyTorch versions at the main paths' shapes, in float32 with TF32
+   off and in bfloat16, and times both;
 4. drives the main path at full width -- the 5-fold ESPNet slide segmenter
    (5 classes, p=2, q=8, 512x1024 network input, crop batch 32, bf16) on
    a seeded synthetic slide with random seeded weights -- with the kernel
-   launch counts set to 0 just before and read just after; then runs the
-   f32 "highest" path with and without the kernel, and the fused model
-   against the plain ``nn.Module`` ESPNet on a small input;
+   launch counts set to 0 just before and read just after, first with the
+   ``fused`` engine, then with the fold-packed ``packed`` engine (what
+   ``engine="auto"`` picks at batch 32), once with its plain level 2 and
+   once with K2, in turns with the fused engine, each form traced; then
+   runs the f32 "highest" paths with and without each kernel, and the
+   fused model against the plain ``nn.Module`` ESPNet on a small input;
 5. holds K3 (greedy NMS) against ``nms_plain`` at both of the detector's
    NMS shapes, on seeded boxes with tied scores and on the real proposals
    of one window batch (indices and counts must be equal), and times both;
@@ -47,6 +52,7 @@ from glomeruli_segmentation_tpu_torch.convert.detector_import import (
     random_detector_state,
 )
 from glomeruli_segmentation_tpu_torch.convert.espnet_import import (
+    load_espnet_state_dict,
     random_state_dict,
 )
 from glomeruli_segmentation_tpu_torch.models.faster_rcnn import (
@@ -55,10 +61,17 @@ from glomeruli_segmentation_tpu_torch.models.faster_rcnn import (
 )
 from glomeruli_segmentation_tpu_torch.models.espnet import create_espnet
 from glomeruli_segmentation_tpu_torch.models.espnet_fused import FusedESPNet
+from glomeruli_segmentation_tpu_torch.models.espnet_packed import (
+    PackedEnsembleESPNet,
+)
 from glomeruli_segmentation_tpu_torch.ops import _build
 from glomeruli_segmentation_tpu_torch.ops.esp_block import (
+    HALO,
     esp_block_fused,
+    esp_block_padded,
+    esp_block_padded_plain,
     esp_block_plain,
+    esp_pad_io,
     pack_esp_weights,
 )
 from glomeruli_segmentation_tpu_torch.ops.nms import nms, nms_plain, premask
@@ -67,6 +80,7 @@ from glomeruli_segmentation_tpu_torch.pipeline.detect import (
     TorchDetectorBackend,
 )
 from glomeruli_segmentation_tpu_torch.pipeline.fused import (
+    FOLD_NORMALIZATION,
     EnsembleConfig,
     EnsembleSegmenter,
     FusedSlideSegmenter,
@@ -83,6 +97,10 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # main-path shape of every level-3 block: crop batch 32, 512x1024 / 8
 K1_SHAPE = (32, 64, 128, 128)
+# the packed engine's level 2: crop batch 32, 512x1024 / 4, 5 folds x 64
+# channels (n = 60, n1 = 80), and its padded layout (W + 2*HALO, C to 384)
+K2_SHAPE = (32, 128, 256, 320)
+K2_PADDED = (32, 128, 256 + 2 * HALO, 384)
 # the detector's NMS problems per window batch of 8: (P, N, k, IoU)
 K3_SHAPES = {"rpn": (8, 2000, 300, 0.7), "second": (8, 300, 100, 0.6)}
 # float32 operations per box in a greedy step that emits a box: the IoU
@@ -124,47 +142,75 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-# ---------------- kernel K1: fused ESP block ----------------
-def esp_block_case(dtype, sd, seed: int = 0) -> dict:
-    """K1 against esp_block_plain at the main-path shape, in ``dtype``."""
-    b, h, w, c = K1_SHAPE
-    w1, wd, scale, bias, alpha = pack_esp_weights(sd, "encoder.level3.0.")
-    n, n_pad = w1.shape[1], wd.shape[2]
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(K1_SHAPE, generator=gen).to("cuda", dtype)
-    args = (x, torch.from_numpy(w1).to("cuda", dtype),
-            torch.from_numpy(wd).to("cuda", dtype),
-            *(torch.from_numpy(v).cuda() for v in (scale, bias, alpha)))
-    y = esp_block_fused(*args)
+# ---------------- kernels K1 and K2: the ESP block ----------------
+def block_case(label: str, kernel, plain, x, operands, pixels: int,
+               after=None) -> dict:
+    """An ESP block kernel against its plain version on ``x`` (f32 or bf16)
+    and the f32 ``operands`` (w1, wd, scale, bias, alpha), both timed in
+    turns; the bound from what the call must move and compute.  ``after``
+    checks the kernel's output further."""
+    dtype = x.dtype
+    w1, wd = (t.to("cuda", dtype) for t in operands[:2])
+    args = (x, w1, wd, *(t.cuda() for t in operands[2:]))
+    y = kernel(*args)
     torch.cuda.synchronize()
-    ref = esp_block_plain(*args)
+    ref = plain(*args)
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs()
     atol, rtol = TOLERANCE[dtype]
     bad = int((err > atol + rtol * ref.float().abs()).sum())
-    check(bool(torch.isfinite(y).all()), f"K1 {dtype}: non-finite output")
-    check(bad == 0, f"K1 {dtype}: {bad} values outside atol {atol} rtol "
-                    f"{rtol} (max abs err {err.max().item():.3e})")
+    check(bool(torch.isfinite(y).all()), f"{label} {dtype}: non-finite")
+    check(bad == 0, f"{label} {dtype}: {bad} values outside atol {atol} "
+                    f"rtol {rtol} (max abs err {err.max().item():.3e})")
+    if after is not None:
+        after(y)
+    max_abs = err.max().item()
+    max_rel = (err / ref.float().abs().clamp_min(1e-3)).max().item()
+    out_numel = y.numel()
+    del y, ref, err
     # plain, kernel, kernel, plain: one card, in turns
     times = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
-        fn = esp_block_plain if name == "plain" else esp_block_fused
+        fn = plain if name == "plain" else kernel
         times[name].append(cuda_ms(lambda: fn(*args)))
+    c, n = w1.shape
     size = x.element_size()
-    nbytes = (2 * x.numel() + w1.size + wd.size) * size + 3 * c * 4
+    # the input's logical pixels read once (K2's halo columns and pad
+    # channels are zero by contract), the whole output written once
+    nbytes = ((pixels * c + out_numel + w1.numel() + wd.numel()) * size
+              + 3 * c * 4)
     # 1x1 reduce C->n, then 9n-deep products into n1 + 4n = C outputs
-    ops = 2 * b * h * w * (c * n + 9 * n * c)
+    ops = 2 * pixels * (c * n + 9 * n * c)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {"dtype": str(dtype).replace("torch.", ""),
-            "max_abs_err": err.max().item(),
-            "max_rel_err": (err / ref.float().abs().clamp_min(1e-3)).max()
-            .item(), "tolerance": [atol, rtol],
+            "shape": list(x.shape),
+            "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "tolerance": [atol, rtol],
             "ms": float(np.mean(times["kernel"])),
             "plain_ms": float(np.mean(times["plain"])),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "gbytes": nbytes / 1e9, "gflop": ops / 1e9, "n_pad": n_pad}
+            "gbytes": nbytes / 1e9, "gflop": ops / 1e9}
+
+
+def print_block_case(label: str, r: dict, name_power: str) -> None:
+    print(f"{label} {r['dtype']} {tuple(r['shape'])}: max abs err "
+          f"{r['max_abs_err']:.3e} max rel err {r['max_rel_err']:.3e} "
+          f"(tolerance atol {r['tolerance'][0]} rtol {r['tolerance'][1]}); "
+          f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']} "
+          f"({r['gbytes']:.3f} GB, {r['gflop']:.2f} GFLOP); library: no "
+          f"single PyTorch call computes the block | {name_power}",
+          flush=True)
+
+
+def check_zero_padding(y, c: int) -> None:
+    """K2's output keeps the padded layout: zero halo columns and zero pad
+    channels, exactly."""
+    check(bool((y[:, :, :HALO] == 0).all() and (y[:, :, -HALO:] == 0).all()),
+          "K2: nonzero halo columns in the output")
+    check(bool((y[..., c:] == 0).all()), "K2: nonzero pad channels")
 
 
 # ---------------- the slice: a synthetic slide ----------------
@@ -231,18 +277,31 @@ def write_checkpoints(folder: Path, classes: int, p: int, q: int):
 
 
 def segment(ensemble, slide, boxes):
-    """One timed segment_slide; returns (canvas, seconds, K1 launches)."""
+    """One timed segment_slide; returns (canvas, seconds, (K1 launches, K2
+    launches))."""
     seg = FusedSlideSegmenter(ensemble)
     torch.cuda.synchronize()
-    esp_block_fused.launches = 0
+    esp_block_fused.launches = esp_block_padded.launches = 0
     t0 = time.perf_counter()
     canvas = seg.segment_slide(slide, boxes)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return canvas, seconds, esp_block_fused.launches
+    return canvas, seconds, (esp_block_fused.launches,
+                             esp_block_padded.launches)
+
+
+def check_canvas(canvas, slide, boxes, classes: int, label: str) -> None:
+    width, height = slide.dimensions
+    check(canvas.shape == (height // 8, width // 8),
+          f"{label}: canvas shape {canvas.shape}")
+    check(int(canvas.max()) < classes, f"{label}: canvas max {canvas.max()}")
+    check(outside_boxes_is_background(canvas, boxes),
+          f"{label}: canvas has labels outside every box")
 
 
 def _kernel_group(name: str) -> str:
+    if "esp_dma_reduce_kernel" in name or "esp_dma_branch_kernel" in name:
+        return "K2 esp_block_dma"
     if "esp_reduce_kernel" in name or "esp_branch_kernel" in name:
         return "K1 esp_block"
     if "nms_kernel" in name:
@@ -339,6 +398,81 @@ def outside_boxes_is_background(canvas, boxes) -> bool:
     for x1, y1, x2, y2, _ in boxes:
         mask[y1 // 8: y2 // 8, x1 // 8: x2 // 8] = True
     return bool((canvas[~mask] == 0).all())
+
+
+# ---------------- the packed engine ----------------
+def packed_phase(config, fused, slide, boxes, fused_canvas,
+                 name_power: str) -> int:
+    """The fold-packed engine on the bf16 slide, with the plain level 2
+    (``gseg-e2e``'s default) and with K2, timed in turns with the fused
+    engine; launch counts and canvases checked; both packed forms traced.
+    Returns K2's launches in its timed run."""
+    bs = config.batch_size
+    n_batches = math.ceil(len(boxes) / bs)
+    want_k1 = config.q * len(config.folds) * n_batches
+    want_k2 = config.p * n_batches
+    engines = {"fused": fused,
+               "packed": EnsembleSegmenter(config, engine="packed"),
+               "packed K2": EnsembleSegmenter(config, engine="packed",
+                                              fuse_level2=True)}
+    check(engines["packed"].fuse_level3 and engines["packed K2"].fuse_level2
+          and not engines["packed"].fuse_level2, "packed engine options")
+    for name in ("packed", "packed K2"):
+        segment(engines[name], slide, boxes[:bs])  # warm-up
+    secs, peak, counts, canvases = {}, {}, {}, {}
+    for name in ("fused", "packed", "packed K2", "packed K2", "packed",
+                 "fused"):
+        torch.cuda.reset_peak_memory_stats()
+        out, t, n = segment(engines[name], slide, boxes)
+        peak[name] = max(peak.get(name, 0.0),
+                         torch.cuda.max_memory_allocated() / 1e9)
+        check_canvas(out, slide, boxes, config.classes, name)
+        want = (want_k1, want_k2 if name == "packed K2" else 0)
+        if name != "fused":
+            check(n == want, f"{name}: (K1, K2) launched {n}, want {want}")
+        secs.setdefault(name, []).append(t)
+        counts[name] = n
+        canvases.setdefault(name, out)
+    for name, ts in secs.items():
+        med = float(np.median(ts))
+        print(f"slice bf16 batch {bs}, engine {name}: s/slide in turns "
+              + ", ".join(f"{t:.4f}" for t in ts)
+              + f" (median {med:.4f}, {len(boxes) / med:.2f} crops/s); "
+              f"(K1, K2) launches {counts[name]}; peak memory "
+              f"{peak[name]:.3f} GB; canvas pixels equal to the fused "
+              f"engine's first run {(canvases[name] == fused_canvas).mean():.6f}"
+              f" | {name_power}", flush=True)
+    for name in ("packed", "packed K2"):
+        ens = engines[name]
+        print_trace(f"bf16 slide, engine {name}", trace(
+            lambda: FusedSlideSegmenter(ens).segment_slide(slide, boxes)),
+            name_power)
+    return counts["packed K2"][1]
+
+
+def packed_f32_phase(config, slide, boxes, fused_canvas,
+                     name_power: str) -> None:
+    """f32 "highest": the packed canvases with K2 and with the plain level 2
+    must agree; the packed-against-fused agreement is printed."""
+    n_batches = math.ceil(len(boxes) / config.batch_size)
+    runs = {}
+    for fuse_level2 in (False, True):
+        ens = EnsembleSegmenter(config, engine="packed",
+                                fuse_level2=fuse_level2)
+        out, t, n = segment(ens, slide, boxes)
+        del ens
+        want = (config.q * len(config.folds) * n_batches,
+                config.p * n_batches if fuse_level2 else 0)
+        check(n == want, f"packed f32: (K1, K2) launched {n}, want {want}")
+        check_canvas(out, slide, boxes, config.classes, "packed f32")
+        runs[fuse_level2] = (out, t)
+    same = float((runs[True][0] == runs[False][0]).mean())
+    vs_fused = float((runs[False][0] == fused_canvas).mean())
+    print(f"packed f32 highest: K2 {runs[True][1]:.4f} s/slide, plain level "
+          f"2 {runs[False][1]:.4f} s/slide; equal canvas pixels K2 vs plain "
+          f"level 2 {same:.6f}, packed vs fused engine {vs_fused:.6f} of "
+          f"{fused_canvas.size} | {name_power}", flush=True)
+    check(same >= 0.999, f"f32 packed K2/plain canvases agree on {same}")
 
 
 # ---------------- kernel K3: greedy NMS ----------------
@@ -665,29 +799,45 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         print(f"  nvcc {src}.cu {seconds:.2f} s: " + " | ".join(lines))
 
-    # ---- kernel K1 against its plain version ----
+    # ---- kernels K1 and K2 against their plain versions ----
     classes, p, q = 5, 2, 8
     sd = random_state_dict(1, classes, p, q)
+    ckpts = write_checkpoints(WORK / "folds", classes, p, q)
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False  # the plain version in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    k1 = {}
+    k1_ops = [torch.from_numpy(v) for v in
+              pack_esp_weights(sd, "encoder.level3.0.")]
+    # K2's operands: the first block of the packed level 2 of the 5 folds
+    packed_f32 = PackedEnsembleESPNet(
+        [load_espnet_state_dict(c) for c in ckpts],
+        [FOLD_NORMALIZATION[f][0] for f in range(1, 6)],
+        [FOLD_NORMALIZATION[f][1] for f in range(1, 6)],
+        fuse_level2=True, dtype=torch.float32)
+    k2_ops = [t.cpu() for t in packed_f32.level2_kernel[0]]
+    k2_channels = k2_ops[0].shape[0]
+    del packed_f32
+    k1, k2 = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        r = k1[dtype] = esp_block_case(dtype, sd)
-        print(f"K1 esp_block_fused {r['dtype']} {K1_SHAPE}: max abs err "
-              f"{r['max_abs_err']:.3e} max rel err {r['max_rel_err']:.3e} "
-              f"(tolerance atol {r['tolerance'][0]} rtol "
-              f"{r['tolerance'][1]}); kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.1f} us "
-              f"by {r['bound_by']} ({r['gbytes']:.3f} GB, {r['gflop']:.2f} "
-              f"GFLOP); library: no single PyTorch call computes the block "
-              f"| {name_power}", flush=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(K1_SHAPE, generator=gen, device="cuda").to(dtype)
+        k1[dtype] = block_case("K1", esp_block_fused, esp_block_plain, x,
+                               k1_ops, math.prod(K1_SHAPE[:3]))
+        print_block_case("K1 esp_block_fused", k1[dtype], name_power)
+        x = esp_pad_io(torch.randn(K2_SHAPE, generator=gen, device="cuda")
+                       .to(dtype))
+        check(tuple(x.shape) == K2_PADDED, f"K2 input {tuple(x.shape)}")
+        k2[dtype] = block_case(
+            "K2", esp_block_padded, esp_block_padded_plain, x, k2_ops,
+            math.prod(K2_SHAPE[:3]),
+            after=lambda y: check_zero_padding(y, k2_channels))
+        print_block_case("K2 esp_block_padded", k2[dtype], name_power)
+        del x
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = tf32
 
     # ---- the main path: 5-fold slide segmentation at full width ----
-    ckpts = write_checkpoints(WORK / "folds", classes, p, q)
     slide, boxes = synthetic_slide(seed=0, height=6144, width=8192,
                                    n_boxes=80, box_min=256, box_max=1200)
     batch = 32
@@ -698,16 +848,11 @@ def main() -> int:
     check(ensemble.fuse_level3, "batch 32 must take the kernel path")
     segment(ensemble, slide, boxes[:batch])  # warm-up, not counted
     torch.cuda.reset_peak_memory_stats()
-    canvas, seconds, launches = segment(ensemble, slide, boxes)
+    canvas, seconds, (launches, _) = segment(ensemble, slide, boxes)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    height, width = slide.dimensions[1], slide.dimensions[0]
-    want = 8 * 5 * n_batches
+    want = q * 5 * n_batches
     check(launches == want, f"K1 launched {launches} times, want {want}")
-    check(canvas.shape == (height // 8, width // 8),
-          f"canvas shape {canvas.shape}")
-    check(int(canvas.max()) < classes, f"canvas max {canvas.max()}")
-    check(outside_boxes_is_background(canvas, boxes),
-          "canvas has labels outside every box")
+    check_canvas(canvas, slide, boxes, classes, "fused bf16")
     print(f"slice bf16 batch {batch}: {len(boxes)} crops in {n_batches} "
           f"batches, {seconds:.4f} s/slide, {len(boxes) / seconds:.2f} "
           f"crops/s, K1 launches {launches}, peak memory {peak_gb:.3f} GB, "
@@ -720,7 +865,7 @@ def main() -> int:
     segment(plain_l3, slide, boxes[:batch])  # warm-up
     turns = {"kernel": [seconds], "plain": []}
     same = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
+    for name in ("plain", "kernel"):
         ens = ensemble if name == "kernel" else plain_l3
         out, secs, _ = segment(ens, slide, boxes)
         turns[name].append(secs)
@@ -732,18 +877,22 @@ def main() -> int:
           + f" (median {np.median(turns['plain']):.4f}); canvas pixels equal "
           f"to the first kernel run: kernel {min(same['kernel']):.6f}, plain "
           f"{min(same['plain']):.6f} | {name_power}", flush=True)
+    del plain_l3
     print_trace("bf16 slide", trace(
         lambda: FusedSlideSegmenter(ensemble).segment_slide(slide, boxes)),
         name_power)
-    del ensemble, plain_l3
+    k2_launches = packed_phase(config, ensemble, slide, boxes, canvas,
+                               name_power)
+    del ensemble
 
-    # ---- f32 "highest": kernel path against the plain level 3 ----
+    # ---- f32 "highest": kernel paths against their plain versions ----
     f32 = EnsembleConfig(checkpoints=ckpts, classes=classes, p=p, q=q,
                          batch_size=batch, compute_dtype="float32",
                          precision="highest")
-    with_kernel, t_k, n_k = segment(EnsembleSegmenter(f32), slide, boxes)
-    plain, t_p, n_p = segment(EnsembleSegmenter(f32, fuse_level3=False),
-                              slide, boxes)
+    with_kernel, t_k, (n_k, _) = segment(EnsembleSegmenter(f32), slide,
+                                         boxes)
+    plain, t_p, (n_p, _) = segment(EnsembleSegmenter(f32, fuse_level3=False),
+                                   slide, boxes)
     check(n_k == want and n_p == 0, f"f32 launches {n_k}/{n_p}")
     same_kp = float((with_kernel == plain).mean())
     same_bf = float((with_kernel == canvas).mean())
@@ -753,6 +902,7 @@ def main() -> int:
           f"plain {same_kp:.6f}, bf16 vs f32 {same_bf:.6f} of "
           f"{canvas.size} | {name_power}", flush=True)
     check(same_kp >= 0.999, f"f32 kernel/plain canvases agree on {same_kp}")
+    packed_f32_phase(f32, slide, boxes, with_kernel, name_power)
 
     # ---- fused model against the plain nn.Module on a small input ----
     torch.backends.cudnn.allow_tf32 = False
@@ -774,35 +924,39 @@ def main() -> int:
 
     k3, det_launches = detector_phases(name_power)
 
-    bf16 = k1[torch.bfloat16]
-    f32r = k1[torch.float32]
+    def esp_entry(name, source, replaces, r, n_launch):
+        bf16, f32r = r[torch.bfloat16], r[torch.float32]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"glomeruli_segmentation_tpu_torch/csrc/{source}",
+            "replaces": f"glomeruli_segmentation_tpu/ops/pallas/{replaces}",
+            "launches": n_launch, "max_abs_err": bf16["max_abs_err"],
+            "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
+            "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+            "library_ms": None, "dtype": "bfloat16", "shape": bf16["shape"],
+            "f32": {k: f32r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}}
+
     k3_main = k3["rpn seeded"]
-    print(json.dumps({"kernels": [{
-        "name": "esp_block_fused", "route": "cuda",
-        "source": "glomeruli_segmentation_tpu_torch/csrc/esp_block.cu",
-        "replaces": "glomeruli_segmentation_tpu/ops/pallas/esp_block.py:72 "
-                    "(_esp_kernel)",
-        "launches": launches, "max_abs_err": bf16["max_abs_err"],
-        "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
-        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-        "library_ms": None, "dtype": "bfloat16", "shape": list(K1_SHAPE),
-        "f32": {k: f32r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by")},
-    }, {
-        "name": "nms", "route": "cuda",
-        "source": "glomeruli_segmentation_tpu_torch/csrc/nms.cu",
-        "replaces": "glomeruli_segmentation_tpu/ops/pallas/nms_pallas.py:27 "
-                    "(_nms_kernel)",
-        "launches": det_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
-        "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
-        "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
-        "library_ms": None, "dtype": "float32",
-        "shape": k3_main["shape"],
-        "cases": {label: {k: r[k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
-            for label, r in k3.items()},
-    }]}))
+    print(json.dumps({"kernels": [
+        esp_entry("esp_block_fused", "esp_block.cu",
+                  "esp_block.py:72 (_esp_kernel)", k1, launches),
+        esp_entry("esp_block_padded", "esp_block_dma.cu",
+                  "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches),
+        {"name": "nms", "route": "cuda",
+         "source": "glomeruli_segmentation_tpu_torch/csrc/nms.cu",
+         "replaces": "glomeruli_segmentation_tpu/ops/pallas/nms_pallas.py:27 "
+                     "(_nms_kernel)",
+         "launches": det_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": None, "dtype": "float32",
+         "shape": k3_main["shape"],
+         "cases": {label: {k: r[k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+             for label, r in k3.items()}},
+    ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

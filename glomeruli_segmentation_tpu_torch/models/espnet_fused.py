@@ -43,6 +43,12 @@ def _affine_prelu(x, scale, bias, alpha):
         + alpha.to(x.dtype).view(1, -1, 1, 1) * torch.clamp_max(y, 0)
 
 
+def _affine(x, scale, bias):
+    """Folded BN without PReLU, in x's type."""
+    return x * scale.to(x.dtype).view(1, -1, 1, 1) \
+        + bias.to(x.dtype).view(1, -1, 1, 1)
+
+
 def _upconv2x2(x, kernel):
     """2x2 stride-2 transposed conv; ``kernel`` is (I, O, 2, 2)."""
     return F.conv_transpose2d(x, kernel, stride=2)
@@ -164,14 +170,17 @@ class FusedESPNet:
         add4 = add3 + outs[4]
         return torch.cat([outs[0], add1, add2, add3, add4], 1)
 
-    def _down(self, pack: Pack, x):
-        combine = self._combine(_conv(x, pack["c1"], stride=2),
-                                pack["branches"])
-        return self._br(pack, combine)
+    @staticmethod
+    def _down(pack: Pack, x):
+        combine = FusedESPNet._combine(_conv(x, pack["c1"], stride=2),
+                                       pack["branches"])
+        return FusedESPNet._br(pack, combine)
 
-    def _esp_plain(self, pack: Pack, x):
-        combine = x + self._combine(_conv(x, pack["c1"]), pack["branches"])
-        return self._br(pack, combine)
+    @staticmethod
+    def _esp_plain(pack: Pack, x):
+        combine = x + FusedESPNet._combine(_conv(x, pack["c1"]),
+                                           pack["branches"])
+        return FusedESPNet._br(pack, combine)
 
     @staticmethod
     def _esp_chain(packs, x):
@@ -215,8 +224,7 @@ class FusedESPNet:
         dec: Optional[Pack] = self.dec
         if dec is None:
             return enc_logits
-        y = enc_logits * dec["br_scale"].to(x.dtype).view(1, -1, 1, 1) \
-            + dec["br_bias"].to(x.dtype).view(1, -1, 1, 1)
+        y = _affine(enc_logits, dec["br_scale"], dec["br_bias"])
         output2_c = _upconv2x2(y, dec["up_l3"])
         output1_c = _conv(output1_cat, dec["level3_C"])
         comb = self._br(dec["comb_br"], torch.cat([output1_c, output2_c], 1))

@@ -1,13 +1,22 @@
 """Slide segmentation on the GPU: crops -> 5-fold ESPNet ensemble -> /8
 slide canvas.
 
-Counterpart of ``glomeruli_segmentation_tpu/pipeline/fused.py``, with the
-``fused`` engine: a loop over folds, each a :class:`..models.espnet_fused.
-FusedESPNet` whose level-3 blocks run the fused ESP block kernel below
-batch 96.  Each fold normalises the resized crops with its own BGR
-mean/std, fold softmaxes are summed in ``accum_dtype`` in fold order, and
-the argmax takes the first class on ties.  The /8 nearest gather for the
-slide stitch runs on the device, so only (B, oh, ow) bytes come back.
+Counterpart of ``glomeruli_segmentation_tpu/pipeline/fused.py``, with two
+engines:
+
+- ``fused``: a loop over folds, each a :class:`..models.espnet_fused.
+  FusedESPNet`.  Each fold normalises the resized crops with its own BGR
+  mean/std, fold softmaxes are summed in ``accum_dtype`` in fold order, and
+  the argmax takes the first class on ties.
+- ``packed``: :class:`..models.espnet_packed.PackedEnsembleESPNet`, all
+  folds in one block-diagonal forward, with the same softmax sum and
+  argmax.  Its gather entry points gather the decoder features before the
+  classifier upconv, so the full-resolution logits are never formed.
+
+``auto`` picks ``packed`` below batch 96 and ``fused`` at or above it, as
+the JAX package does.  Both engines run level 3 through the fused ESP block
+kernel (K1) below batch 96.  The /8 nearest gather for the slide stitch
+runs on the device, so only (B, oh, ow) bytes come back.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from .. import resolve_device
 from ..convert.espnet_import import load_espnet_state_dict
 from ..models.espnet_fused import FusedESPNet
+from ..models.espnet_packed import PackedEnsembleESPNet
 from ..ops.preprocess import (FLAT_OFFSET_LIMIT, flat_bytes_needed,
                               pack_crops_flat, postprocess_nearest_host,
                               resize_bilinear_dynamic, unflatten_crops)
@@ -79,17 +89,27 @@ def _tf32(allow: bool):
 
 
 class EnsembleSegmenter:
-    """Fold loop over raw padded BGR crops -> summed-softmax class maps.
+    """Fold ensemble over raw padded BGR crops -> summed-softmax class maps.
 
-    ``fuse_level3`` defaults to ``batch_size < 96``, as in the JAX package;
-    pass False to run level 3 through plain torch ops instead of the fused
-    ESP block kernel.
+    ``engine`` is ``"fused"``, ``"packed"`` or ``"auto"`` (``"packed"``
+    below batch 96, ``"fused"`` from it on).  The default stays ``"fused"``
+    because the JAX constructor's default, the ``xla`` fold-vmap engine, is
+    not ported.  ``fuse_level3`` defaults to ``batch_size < 96``, as in the
+    JAX package; pass False to run level 3 through plain torch ops instead
+    of K1.  ``fuse_level2`` (packed engine only, off by default as the JAX
+    package's ``level2="xla"``) runs the packed level 2 through K2.
     """
 
     def __init__(self, config: EnsembleConfig, engine: str = "fused",
-                 device="cuda", fuse_level3: Optional[bool] = None):
-        if engine != "fused":
-            raise ValueError(f"engine {engine!r} is not ported; use 'fused'")
+                 device="cuda", fuse_level3: Optional[bool] = None,
+                 fuse_level2: bool = False):
+        if engine == "auto":
+            engine = "packed" if config.batch_size < 96 else "fused"
+        if engine not in ("fused", "packed"):
+            raise ValueError(f"engine {engine!r} is not ported; use "
+                             f"'fused', 'packed' or 'auto'")
+        if fuse_level2 and engine != "packed":
+            raise ValueError("fuse_level2 applies to the packed engine only")
         if config.pack_output:
             raise ValueError("pack_output is not ported")
         if config.precision not in ("default", "highest"):
@@ -110,12 +130,22 @@ class EnsembleSegmenter:
         if fuse_level3 is None:
             fuse_level3 = config.batch_size < 96
         self.fuse_level3 = fuse_level3
-        self.nets = [FusedESPNet(load_espnet_state_dict(ckpt),
-                                 fuse_level3=fuse_level3,
-                                 dtype=self.compute_dtype, device=self.device)
-                     for ckpt in config.checkpoints]
+        self.fuse_level2 = fuse_level2
+        state_dicts = [load_espnet_state_dict(ckpt)
+                       for ckpt in config.checkpoints]
         means = [FOLD_NORMALIZATION[f][0] for f in config.folds]
         stds = [FOLD_NORMALIZATION[f][1] for f in config.folds]
+        self.nets = self._packed = None
+        if engine == "packed":
+            self._packed = PackedEnsembleESPNet(
+                state_dicts, means, stds, fuse_level3=fuse_level3,
+                fuse_level2=fuse_level2, dtype=self.compute_dtype,
+                accum_dtype=self.accum_dtype, device=self.device)
+        else:
+            self.nets = [FusedESPNet(sd, fuse_level3=fuse_level3,
+                                     dtype=self.compute_dtype,
+                                     device=self.device)
+                         for sd in state_dicts]
         self.mean = torch.tensor(means, dtype=torch.float32,
                                  device=self.device)   # (F, 3) BGR
         self.std = torch.tensor(stds, dtype=torch.float32, device=self.device)
@@ -131,6 +161,10 @@ class EnsembleSegmenter:
     @torch.no_grad()
     def _fold_argmax(self, resized: torch.Tensor) -> torch.Tensor:
         """(B, in_h, in_w, 3) float32 BGR -> (B, in_h, in_w) uint8."""
+        if self._packed is not None:
+            # normalises per fold itself, from the float32 crops
+            with _tf32(self.allow_tf32):
+                return self._packed(resized)
         acc_f32 = self.accum_dtype == torch.float32
         # the bf16 path reads the resized batch once per fold: keep it bf16
         resized = resized.to(self.compute_dtype)
@@ -152,6 +186,10 @@ class EnsembleSegmenter:
         """Forward + per-crop nearest-index gather: (B, oh, ow) uint8.
         ``ys``/``xs`` are (B, oh)/(B, ow) row/column tables into the
         (in_height, in_width) map."""
+        if self._packed is not None:
+            resized = self._resize_batch(padded, heights, widths)
+            with _tf32(self.allow_tf32):
+                return self._packed.gathered_argmax(resized, ys, xs)
         maps = self._forward(padded, heights, widths)
         batch = torch.arange(maps.shape[0], device=maps.device)
         return maps[batch[:, None, None], ys.long()[:, :, None],

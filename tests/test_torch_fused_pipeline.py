@@ -202,7 +202,7 @@ def test_port_imports_no_jax():
     (dict(folds=(1,)), "checkpoints for folds"),
     (dict(pack_output=True), "pack_output"),
     (dict(precision="high"), "precision"),
-    ("packed", "not ported"),
+    ("xla", "not ported"),
 ])
 def test_ensemble_rejects_unsupported_config(checkpoints, change, match):
     cfg = port_fused.EnsembleConfig(checkpoints=checkpoints, **SMALL)
