@@ -9,14 +9,18 @@
 3. holds K1 (the fused ESP block) and K2 (the ESP block on the padded
    layout, with zero halo columns and pad channels checked) against their
    plain PyTorch versions at the main paths' shapes, in float32 with TF32
-   off and in bfloat16, and times both;
+   off and in bfloat16, and times both (TFLOP/s and share of the bound);
+   holds K1 against its plain version at the edges of its tiling too, and
+   counts the tensor-core (HMMA/HGMMA) instructions of each K1 kernel with
+   ``cuobjdump -sass`` where the toolkit has it;
 4. drives the main path at full width -- the 5-fold ESPNet slide segmenter
    (5 classes, p=2, q=8, 512x1024 network input, crop batch 32, bf16) on
    a seeded synthetic slide with random seeded weights -- with the kernel
    launch counts set to 0 just before and read just after, first with the
    ``fused`` engine, then with the fold-packed ``packed`` engine (what
-   ``engine="auto"`` picks at batch 32), once with its plain level 2 and
-   once with K2, in turns with the fused engine, each form traced; then
+   ``engine="auto"`` picks at batch 32), with its plain level 2, with K2,
+   and with a plain level 3 (no K1), in turns with the fused engine, each
+   packed form traced; then
    runs the f32 "highest" paths with and without each kernel, and the
    fused model against the plain ``nn.Module`` ESPNet on a small input;
 5. holds K3 (greedy NMS) against ``nms_plain`` at both of the detector's
@@ -40,6 +44,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -97,6 +103,13 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # main-path shape of every level-3 block: crop batch 32, 512x1024 / 8
 K1_SHAPE = (32, 64, 128, 128)
+# K1's tiling edges: H and W not multiples of its (2, 128) tile; H < 16, so
+# every d8 and d16 tap but the centre is padding; the C=64 (level-2) width
+K1_EDGE_SHAPES = ((3, 9, 70, 128), (2, 8, 16, 128), (2, 33, 45, 64))
+# device time of K1 in the traced packed slide and that slide's idle share
+# with the CUDA-core design K1 had before its products moved to the tensor
+# cores (one H100 80GB HBM3 at 700 W, PERF.md)
+K1_CUDA_CORE_SLIDE_MS, K1_CUDA_CORE_IDLE = 174.0, "0.22-0.27"
 # the packed engine's level 2: crop batch 32, 512x1024 / 4, 5 folds x 64
 # channels (n = 60, n1 = 80), and its padded layout (W + 2*HALO, C to 384)
 K2_SHAPE = (32, 128, 256, 320)
@@ -144,11 +157,11 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 # ---------------- kernels K1 and K2: the ESP block ----------------
 def block_case(label: str, kernel, plain, x, operands, pixels: int,
-               after=None) -> dict:
+               after=None, timed: bool = True) -> dict:
     """An ESP block kernel against its plain version on ``x`` (f32 or bf16)
     and the f32 ``operands`` (w1, wd, scale, bias, alpha), both timed in
-    turns; the bound from what the call must move and compute.  ``after``
-    checks the kernel's output further."""
+    turns unless not ``timed``; the bound from what the call must move and
+    compute.  ``after`` checks the kernel's output further."""
     dtype = x.dtype
     w1, wd = (t.to("cuda", dtype) for t in operands[:2])
     args = (x, w1, wd, *(t.cuda() for t in operands[2:]))
@@ -168,6 +181,10 @@ def block_case(label: str, kernel, plain, x, operands, pixels: int,
     max_rel = (err / ref.float().abs().clamp_min(1e-3)).max().item()
     out_numel = y.numel()
     del y, ref, err
+    if not timed:
+        return {"dtype": str(dtype).replace("torch.", ""),
+                "shape": list(x.shape), "max_abs_err": max_abs,
+                "max_rel_err": max_rel, "tolerance": [atol, rtol]}
     # plain, kernel, kernel, plain: one card, in turns
     times = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
@@ -200,9 +217,73 @@ def print_block_case(label: str, r: dict, name_power: str) -> None:
           f"(tolerance atol {r['tolerance'][0]} rtol {r['tolerance'][1]}); "
           f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
           f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']} "
-          f"({r['gbytes']:.3f} GB, {r['gflop']:.2f} GFLOP); library: no "
+          f"({r['gbytes']:.3f} GB, {r['gflop']:.2f} GFLOP); "
+          f"{r['gflop'] / r['ms']:.1f} TFLOP/s, "
+          f"{r['bound_ms'] / r['ms']:.1%} of the bound; library: no "
           f"single PyTorch call computes the block | {name_power}",
           flush=True)
+
+
+def kernel_name(symbol: str) -> str:
+    """``name<template args>`` of a mangled kernel symbol of the port."""
+    found = re.search(r"\d+([a-z][a-z_]*?_kernel)I?(\w*)", symbol)
+    if not found:
+        return symbol
+    args = re.findall(r"Li(\d+)E|^(f)|^13__nv_(bfloat16)", found.group(2))
+    return found.group(1) + "<" + ",".join("".join(a) for a in args) + ">"
+
+
+def ptxas_summary(log: str) -> list:
+    """``kernel<template args>: registers, barriers, static shared memory,
+    spills`` per kernel, from the ``-Xptxas -v`` output of one build."""
+    out, kernel, spills = [], "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = kernel_name(entry.group(1))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            out.append(f"{kernel}: {line.split('Used ')[-1].strip()}, "
+                       f"{spills}")
+    return out
+
+
+def sass_mma_counts(name: str):
+    """{kernel: tensor-core instructions (HMMA, or HGMMA for wgmma)} of a
+    built library, from ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            current = kernel_name(found.group(1))
+            counts[current] = 0
+        elif current and re.search(r"\bHG?MMA\.", line):
+            counts[current] += 1
+    return counts
+
+
+def check_k1_sass(name_power: str) -> None:
+    """K1's bf16 kernels must use the tensor cores, its f32 kernels not."""
+    counts = sass_mma_counts("esp_block")
+    if counts is None:
+        print("K1 sass: cuobjdump not found, tensor-core instructions not "
+              "counted")
+        return
+    for kernel, hmma in sorted(counts.items()):
+        print(f"K1 sass: {hmma} tensor-core (HMMA/HGMMA) instructions in "
+              f"{kernel} | {name_power}")
+        check(("_mma_kernel" in kernel) == (hmma > 0),
+              f"K1 kernel {kernel} has {hmma} tensor-core instructions")
+    check(sum("_mma_kernel" in s_ for s_ in counts) == 4,
+          f"K1 tensor-core kernels built: {sorted(counts)}")
 
 
 def check_zero_padding(y, c: int) -> None:
@@ -302,7 +383,7 @@ def check_canvas(canvas, slide, boxes, classes: int, label: str) -> None:
 def _kernel_group(name: str) -> str:
     if "esp_dma_reduce_kernel" in name or "esp_dma_branch_kernel" in name:
         return "K2 esp_block_dma"
-    if "esp_reduce_kernel" in name or "esp_branch_kernel" in name:
+    if "esp_reduce" in name or "esp_branch" in name:
         return "K1 esp_block"
     if "nms_kernel" in name:
         return "K3 nms"
@@ -404,9 +485,10 @@ def outside_boxes_is_background(canvas, boxes) -> bool:
 def packed_phase(config, fused, slide, boxes, fused_canvas,
                  name_power: str) -> int:
     """The fold-packed engine on the bf16 slide, with the plain level 2
-    (``gseg-e2e``'s default) and with K2, timed in turns with the fused
-    engine; launch counts and canvases checked; both packed forms traced.
-    Returns K2's launches in its timed run."""
+    (``gseg-e2e``'s default), with K2, and with the plain level 3 in place
+    of K1, timed in turns with the fused engine; launch counts and canvases
+    checked; every packed form traced.  Returns K2's launches in its timed
+    run."""
     bs = config.batch_size
     n_batches = math.ceil(len(boxes) / bs)
     want_k1 = config.q * len(config.folds) * n_batches
@@ -414,20 +496,27 @@ def packed_phase(config, fused, slide, boxes, fused_canvas,
     engines = {"fused": fused,
                "packed": EnsembleSegmenter(config, engine="packed"),
                "packed K2": EnsembleSegmenter(config, engine="packed",
-                                              fuse_level2=True)}
+                                              fuse_level2=True),
+               "packed plain L3": EnsembleSegmenter(config, engine="packed",
+                                                    fuse_level3=False)}
     check(engines["packed"].fuse_level3 and engines["packed K2"].fuse_level2
-          and not engines["packed"].fuse_level2, "packed engine options")
-    for name in ("packed", "packed K2"):
+          and not engines["packed"].fuse_level2
+          and not engines["packed plain L3"].fuse_level3,
+          "packed engine options")
+    for name in ("packed", "packed K2", "packed plain L3"):
         segment(engines[name], slide, boxes[:bs])  # warm-up
     secs, peak, counts, canvases = {}, {}, {}, {}
-    for name in ("fused", "packed", "packed K2", "packed K2", "packed",
-                 "fused"):
+    # K1 against the plain level 3 nested in turns: plain, kernel, kernel,
+    # plain
+    for name in ("fused", "packed plain L3", "packed", "packed K2",
+                 "packed K2", "packed", "packed plain L3", "fused"):
         torch.cuda.reset_peak_memory_stats()
         out, t, n = segment(engines[name], slide, boxes)
         peak[name] = max(peak.get(name, 0.0),
                          torch.cuda.max_memory_allocated() / 1e9)
         check_canvas(out, slide, boxes, config.classes, name)
-        want = (want_k1, want_k2 if name == "packed K2" else 0)
+        want = (0 if name == "packed plain L3" else want_k1,
+                want_k2 if name == "packed K2" else 0)
         if name != "fused":
             check(n == want, f"{name}: (K1, K2) launched {n}, want {want}")
         secs.setdefault(name, []).append(t)
@@ -442,11 +531,21 @@ def packed_phase(config, fused, slide, boxes, fused_canvas,
               f"{peak[name]:.3f} GB; canvas pixels equal to the fused "
               f"engine's first run {(canvases[name] == fused_canvas).mean():.6f}"
               f" | {name_power}", flush=True)
-    for name in ("packed", "packed K2"):
+    traces = {}
+    for name in ("packed", "packed K2", "packed plain L3"):
         ens = engines[name]
-        print_trace(f"bf16 slide, engine {name}", trace(
-            lambda: FusedSlideSegmenter(ens).segment_slide(slide, boxes)),
-            name_power)
+        traces[name] = trace(
+            lambda: FusedSlideSegmenter(ens).segment_slide(slide, boxes))
+        print_trace(f"bf16 slide, engine {name}", traces[name], name_power)
+    packed = traces["packed"]
+    k1_ms = packed["groups_ms"].get("K1 esp_block", 0.0)
+    print(f"K1 in the traced packed slide: {k1_ms:.1f} ms of "
+          f"{packed['device_busy_ms']:.1f} ms device busy, idle share "
+          f"{packed['idle_share']:.3f}; the CUDA-core K1 took "
+          f"{K1_CUDA_CORE_SLIDE_MS} ms, idle {K1_CUDA_CORE_IDLE}; with the "
+          f"plain level 3: {traces['packed plain L3']['device_busy_ms']:.1f}"
+          f" ms busy, idle {traces['packed plain L3']['idle_share']:.3f} | "
+          f"{name_power}", flush=True)
     return counts["packed K2"][1]
 
 
@@ -795,9 +894,9 @@ def main() -> int:
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {_build.SOURCES}")
     for src, (seconds, log) in _build.build_log.items():
-        lines = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"  nvcc {src}.cu {seconds:.2f} s: " + " | ".join(lines))
+        print(f"  nvcc {src}.cu {seconds:.2f} s: " + " | ".join(
+            ptxas_summary(log)))
+    check_k1_sass(name_power)
 
     # ---- kernels K1 and K2 against their plain versions ----
     classes, p, q = 5, 2, 8
@@ -809,6 +908,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     k1_ops = [torch.from_numpy(v) for v in
               pack_esp_weights(sd, "encoder.level3.0.")]
+    k1_ops64 = [torch.from_numpy(v) for v in
+                pack_esp_weights(sd, "encoder.level2.0.")]
     # K2's operands: the first block of the packed level 2 of the 5 folds
     packed_f32 = PackedEnsembleESPNet(
         [load_espnet_state_dict(c) for c in ckpts],
@@ -825,6 +926,19 @@ def main() -> int:
         k1[dtype] = block_case("K1", esp_block_fused, esp_block_plain, x,
                                k1_ops, math.prod(K1_SHAPE[:3]))
         print_block_case("K1 esp_block_fused", k1[dtype], name_power)
+        for shape in K1_EDGE_SHAPES:
+            for add_residual in (True, False):
+                edge = block_case(
+                    f"K1 {shape} residual={add_residual}",
+                    lambda *a: esp_block_fused(*a, add_residual=add_residual),
+                    lambda *a: esp_block_plain(*a, add_residual=add_residual),
+                    torch.randn(shape, generator=gen, device="cuda").to(dtype),
+                    k1_ops if shape[3] == 128 else k1_ops64, 0, timed=False)
+                print(f"K1 edge {edge['dtype']} {shape} residual="
+                      f"{add_residual}: max abs err {edge['max_abs_err']:.3e}"
+                      f" max rel err {edge['max_rel_err']:.3e} (tolerance "
+                      f"atol {edge['tolerance'][0]} rtol "
+                      f"{edge['tolerance'][1]})", flush=True)
         x = esp_pad_io(torch.randn(K2_SHAPE, generator=gen, device="cuda")
                        .to(dtype))
         check(tuple(x.shape) == K2_PADDED, f"K2 input {tuple(x.shape)}")

@@ -150,8 +150,8 @@ def _library() -> ctypes.CDLL:
     lib.esp_block_forward.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.esp_block_forward.restype = ctypes.c_int
-    lib.esp_block_supports_width.argtypes = [ctypes.c_int]
-    lib.esp_block_supports_width.restype = ctypes.c_int
+    lib.esp_block_scratch_bytes.argtypes = [ctypes.c_int] * 7
+    lib.esp_block_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -172,7 +172,9 @@ def esp_block_fused(x: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
 
     A CUDA tensor goes through the kernel (or the call raises); a CPU
     tensor goes through :func:`esp_block_plain`.  ``esp_block_fused.launches``
-    counts kernel launches.
+    counts kernel launches.  In bf16 the kernel runs on the tensor cores and
+    takes C=128 with n <= 32 and C=64 with n <= 16 (ESPNet's level 3 and
+    level 2); in f32 it runs on the CUDA cores, with no TF32 rounding.
     """
     _check(x, w1, wd, scale, bias, alpha)
     if x.device.type == "cpu":
@@ -181,19 +183,24 @@ def esp_block_fused(x: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
     b, h, w, c = x.shape
     n = w1.shape[1]
     n_pad = wd.shape[2]
+    is_bf16 = int(x.dtype == torch.bfloat16)
     lib = _library()
-    if not lib.esp_block_supports_width(n_pad):
-        raise ValueError(f"esp_block kernel is not built for branch width "
-                         f"{n_pad} (C={c})")
-    reduced = torch.empty((b, h, w, n), dtype=x.dtype, device=x.device)
+    nbytes = lib.esp_block_scratch_bytes(b, h, w, c, n, n_pad, is_bf16)
+    if nbytes < 0:
+        raise ValueError(f"esp_block kernel is not built for C={c}, n={n}, "
+                         f"n_pad={n_pad} in {x.dtype}")
+    if is_bf16 and x.data_ptr() % 16:
+        raise ValueError("bf16 x must be 16-byte aligned (the kernel copies "
+                         "it in 16-byte chunks)")
+    # the reduce output and, in bf16, wd in tensor-core fragment order
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.esp_block_forward(
             _ptr(x), _ptr(w1), _ptr(wd), _ptr(scale), _ptr(bias), _ptr(alpha),
-            _ptr(reduced), _ptr(y), b, h, w, c, n, c - 4 * n, n_pad,
-            int(add_residual), int(x.dtype == torch.bfloat16),
-            ctypes.c_void_p(stream))
+            _ptr(scratch), _ptr(y), b, h, w, c, n, c - 4 * n, n_pad,
+            int(add_residual), is_bf16, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"esp_block kernel launch failed: CUDA error {err}")
     esp_block_fused.launches += 1

@@ -52,6 +52,10 @@ def test_pack_esp_weights_matches_jax(c):
     (128, 16, 32),  # level-3 channels (n=25, n1=28)
     (64, 32, 64),   # level-2 channels (n=12, n1=16)
     (128, 8, 16),   # H < HALO: every d16 tap but the centre is padding
+    # the edges of the CUDA kernel's (2 rows, 128 columns) tiling: odd H,
+    # W that is no multiple of a 16-pixel mma tile, and the C=64 width
+    (128, 9, 70),
+    (64, 33, 45),
 ])
 def test_esp_block_plain_matches_pallas(c, h, w, add_residual):
     x, params, stats, entries = _block(c, h, w)
@@ -90,6 +94,24 @@ def test_esp_block_plain_rounds_reduce_like_pallas_bf16():
     # order before the bf16-rounded reduce
     np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h,w", [(128, 9, 70), (64, 33, 45)])
+def test_esp_block_fused_cpu_is_plain_and_launches_nothing(c, h, w, dtype):
+    """On a CPU tensor the wrapper returns the plain version's result
+    exactly, in both types and at both widths, and counts no launch; the
+    kernel's scratch and alignment rules are the CUDA path's alone."""
+    x, _, _, entries = _block(c, h, w, seed=5)
+    w1, wd, scale, bias, alpha = (torch.from_numpy(a) for a in
+                                  torch_esp.pack_esp_weights(entries, ""))
+    args = (torch.from_numpy(x).to(dtype), w1.to(dtype), wd.to(dtype),
+            scale, bias, alpha)
+    before = torch_esp.esp_block_fused.launches
+    got = torch_esp.esp_block_fused(*args)
+    assert torch_esp.esp_block_fused.launches == before
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, torch_esp.esp_block_plain(*args))
 
 
 @pytest.mark.parametrize("bad", ["w1", "wd", "scale", "x"])
