@@ -7,25 +7,31 @@
 2. builds every kernel of the port from ``glomeruli_segmentation_tpu_torch/
    csrc`` (one ``nvcc`` per source, all at once) into build/torch_kernels/;
 3. holds K1 (the fused ESP block) and K2 (the ESP block on the padded
-   layout, with zero halo columns and pad channels checked) against their
-   plain PyTorch versions at the main paths' shapes, in float32 with TF32
-   off and in bfloat16, and times both (TFLOP/s and share of the bound);
-   holds K1 against its plain version at the edges of its tiling too, and
-   counts the tensor-core (HMMA/HGMMA) instructions of each K1 kernel with
+   layout over the packed engine's 5 folds, with zero halo columns and pad
+   channels checked) against their plain PyTorch versions at the main
+   paths' shapes, in float32 with TF32 off and in bfloat16, and times both
+   (TFLOP/s and share of the bound; K2's bound also with the dense
+   block-diagonal product count); holds both against their plain versions
+   at the edges of their tiling too (K2 also at two folds), and counts
+   the tensor-core (HMMA/HGMMA) instructions of each K1 and K2 kernel with
    ``cuobjdump -sass`` where the toolkit has it;
 4. drives the main path at full width -- the 5-fold ESPNet slide segmenter
    (5 classes, p=2, q=8, 512x1024 network input, crop batch 32, bf16) on
    a seeded synthetic slide with random seeded weights -- with the kernel
    launch counts set to 0 just before and read just after, first with the
    ``fused`` engine, then with the fold-packed ``packed`` engine (what
-   ``engine="auto"`` picks at batch 32), with its plain level 2, with K2,
-   and with a plain level 3 (no K1), in turns with the fused engine, each
-   packed form traced; then
+   ``engine="auto"`` picks at batch 32), with its plain level 2 and with
+   K2 in turns (``fuse_level2``), and with a plain level 3 (no K1), in
+   turns with the fused engine, each packed form traced, and times the
+   engine's own plain level-2 block at K2's shape (K2's composed-ops
+   reference); then
    runs the f32 "highest" paths with and without each kernel, and the
    fused model against the plain ``nn.Module`` ESPNet on a small input;
 5. holds K3 (greedy NMS) against ``nms_plain`` at both of the detector's
    NMS shapes, on seeded boxes with tied scores and on the real proposals
-   of one window batch (indices and counts must be equal), and times both;
+   of one window batch, and on seeded boxes at N = 6000 and 8192 (indices
+   and counts must be equal), and times both by events (the kernel's
+   device time in a trace beside it);
 6. drives the second path at full width -- the ResNet-50-C4 Faster R-CNN
    window detector (``FasterRCNNConfig()``, bf16, random seeded weights
    with calibrated BN statistics) over a seeded level-3 pyramid stub at
@@ -69,6 +75,8 @@ from glomeruli_segmentation_tpu_torch.models.espnet import create_espnet
 from glomeruli_segmentation_tpu_torch.models.espnet_fused import FusedESPNet
 from glomeruli_segmentation_tpu_torch.models.espnet_packed import (
     PackedEnsembleESPNet,
+    _esp_fused_operands,
+    _esp_plain,
 )
 from glomeruli_segmentation_tpu_torch.ops import _build
 from glomeruli_segmentation_tpu_torch.ops.esp_block import (
@@ -77,8 +85,10 @@ from glomeruli_segmentation_tpu_torch.ops.esp_block import (
     esp_block_padded,
     esp_block_padded_plain,
     esp_block_plain,
+    esp_group_channels,
     esp_pad_io,
     pack_esp_weights,
+    unpack_esp_groups,
 )
 from glomeruli_segmentation_tpu_torch.ops.nms import nms, nms_plain, premask
 from glomeruli_segmentation_tpu_torch.pipeline.detect import (
@@ -114,8 +124,18 @@ K1_CUDA_CORE_SLIDE_MS, K1_CUDA_CORE_IDLE = 174.0, "0.22-0.27"
 # channels (n = 60, n1 = 80), and its padded layout (W + 2*HALO, C to 384)
 K2_SHAPE = (32, 128, 256, 320)
 K2_PADDED = (32, 128, 256 + 2 * HALO, 384)
+K2_FOLDS = 5
+# K2's edges: (B, H, W, folds).  H < 16, so every d8 and d16 tap but the
+# centre is padding; W not a multiple of the 64-column strip; two folds
+K2_EDGE_SHAPES = ((3, 9, 70, 5), (2, 33, 100, 2))
+# device time of K2 in the traced packed K2 slide with the CUDA-core design
+# it had before its products moved to the tensor cores (one H100 80GB HBM3
+# at 700 W, PERF.md)
+K2_CUDA_CORE_SLIDE_MS = 163.5
 # the detector's NMS problems per window batch of 8: (P, N, k, IoU)
 K3_SHAPES = {"rpn": (8, 2000, 300, 0.7), "second": (8, 300, 100, 0.6)}
+# the frozen-graph backend's pre_nms_top_n, and the kernel's largest N
+K3_LARGE = ((2, 6000, 300, 0.7), (2, 8192, 300, 0.7))
 # float32 operations per box in a greedy step that emits a box: the IoU
 # (2 min, 2 max, 2 sub, 2 clamp, mul, add, sub, div), the threshold and
 # winner compares, the suppression select, and the argmax compare
@@ -157,17 +177,25 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 # ---------------- kernels K1 and K2: the ESP block ----------------
 def block_case(label: str, kernel, plain, x, operands, pixels: int,
-               after=None, timed: bool = True) -> dict:
+               after=None, timed: bool = True, plain_operands=None,
+               groups: int = 1, split: str = None) -> dict:
     """An ESP block kernel against its plain version on ``x`` (f32 or bf16)
-    and the f32 ``operands`` (w1, wd, scale, bias, alpha), both timed in
-    turns unless not ``timed``; the bound from what the call must move and
-    compute.  ``after`` checks the kernel's output further."""
+    and the f32 ``operands`` (w1, wd, scale, bias, alpha; the plain version
+    takes ``plain_operands`` where they differ, as K2's dense ones from its
+    per-group ones), both timed in turns unless not ``timed``; the bound
+    from what the call must move and compute.  ``after`` checks the
+    kernel's output further."""
     dtype = x.dtype
-    w1, wd = (t.to("cuda", dtype) for t in operands[:2])
-    args = (x, w1, wd, *(t.cuda() for t in operands[2:]))
+
+    def on_card(ops):
+        w1, wd = (t.to("cuda", dtype) for t in ops[:2])
+        return (x, w1, wd, *(t.cuda() for t in ops[2:]))
+
+    args = on_card(operands)
+    plain_args = args if plain_operands is None else on_card(plain_operands)
     y = kernel(*args)
     torch.cuda.synchronize()
-    ref = plain(*args)
+    ref = plain(*plain_args)
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs()
     atol, rtol = TOLERANCE[dtype]
@@ -188,40 +216,55 @@ def block_case(label: str, kernel, plain, x, operands, pixels: int,
     # plain, kernel, kernel, plain: one card, in turns
     times = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
-        fn = plain if name == "plain" else kernel
-        times[name].append(cuda_ms(lambda: fn(*args)))
-    c, n = w1.shape
+        if name == "plain":
+            times[name].append(cuda_ms(lambda: plain(*plain_args)))
+        else:
+            times[name].append(cuda_ms(lambda: kernel(*args)))
+    c, n = plain_args[1].shape
     size = x.element_size()
     # the input's logical pixels read once (K2's halo columns and pad
-    # channels are zero by contract), the whole output written once
-    nbytes = ((pixels * c + out_numel + w1.numel() + wd.numel()) * size
-              + 3 * c * 4)
-    # 1x1 reduce C->n, then 9n-deep products into n1 + 4n = C outputs
-    ops = 2 * pixels * (c * n + 9 * n * c)
+    # channels are zero by contract), the whole output written once, the
+    # weights the kernel takes
+    nbytes = ((pixels * c + out_numel + args[1].numel() + args[2].numel())
+              * size + 3 * c * 4)
+    # 1x1 reduce C->n, then 9n-deep products into n1 + 4n = C outputs; of
+    # G independent blocks side by side only the diagonal blocks count
+    dense_ops = 2 * pixels * (c * n + 9 * n * c)
+    ops = dense_ops // groups
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    # the kernel's passes, from a trace of 5 calls
+    parts = {} if split is None else kernel_split(
+        trace(lambda: [kernel(*args) for _ in range(5)]), split, 5)
     return {"dtype": str(dtype).replace("torch.", ""),
             "shape": list(x.shape),
             "max_abs_err": max_abs, "max_rel_err": max_rel,
-            "tolerance": [atol, rtol],
+            "tolerance": [atol, rtol], "split_ms": parts,
             "ms": float(np.mean(times["kernel"])),
             "plain_ms": float(np.mean(times["plain"])),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "gbytes": nbytes / 1e9, "gflop": ops / 1e9}
+            "gbytes": nbytes / 1e9, "gflop": ops / 1e9,
+            "gflop_dense": dense_ops / 1e9,
+            "dense_bound_ms": max(t_bytes, dense_ops / PEAK_OPS_PER_S[dtype]
+                                  * 1e3)}
 
 
 def print_block_case(label: str, r: dict, name_power: str) -> None:
+    dense = "" if r["gflop_dense"] == r["gflop"] else (
+        f"; counting the zero cross-fold blocks too {r['gflop_dense']:.2f} "
+        f"GFLOP, bound {r['dense_bound_ms'] * 1e3:.1f} us")
     print(f"{label} {r['dtype']} {tuple(r['shape'])}: max abs err "
           f"{r['max_abs_err']:.3e} max rel err {r['max_rel_err']:.3e} "
           f"(tolerance atol {r['tolerance'][0]} rtol {r['tolerance'][1]}); "
           f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
           f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']} "
-          f"({r['gbytes']:.3f} GB, {r['gflop']:.2f} GFLOP); "
+          f"({r['gbytes']:.3f} GB, {r['gflop']:.2f} GFLOP{dense}); "
           f"{r['gflop'] / r['ms']:.1f} TFLOP/s, "
-          f"{r['bound_ms'] / r['ms']:.1%} of the bound; library: no "
-          f"single PyTorch call computes the block | {name_power}",
-          flush=True)
+          f"{r['bound_ms'] / r['ms']:.1%} of the bound; "
+          + "".join(f"{k} {v:.4f} ms, " for k, v in r["split_ms"].items())
+          + f"library: no single PyTorch call computes the block | "
+          f"{name_power}", flush=True)
 
 
 def kernel_name(symbol: str) -> str:
@@ -270,20 +313,22 @@ def sass_mma_counts(name: str):
     return counts
 
 
-def check_k1_sass(name_power: str) -> None:
-    """K1's bf16 kernels must use the tensor cores, its f32 kernels not."""
-    counts = sass_mma_counts("esp_block")
+def check_sass(label: str, source: str, mma_kernels: int,
+               name_power: str) -> None:
+    """The bf16 kernels of ``source`` (named ``*_mma_kernel``) must use the
+    tensor cores, its f32 kernels not."""
+    counts = sass_mma_counts(source)
     if counts is None:
-        print("K1 sass: cuobjdump not found, tensor-core instructions not "
-              "counted")
+        print(f"{label} sass: cuobjdump not found, tensor-core instructions "
+              f"not counted")
         return
     for kernel, hmma in sorted(counts.items()):
-        print(f"K1 sass: {hmma} tensor-core (HMMA/HGMMA) instructions in "
-              f"{kernel} | {name_power}")
+        print(f"{label} sass: {hmma} tensor-core (HMMA/HGMMA) instructions "
+              f"in {kernel} | {name_power}")
         check(("_mma_kernel" in kernel) == (hmma > 0),
-              f"K1 kernel {kernel} has {hmma} tensor-core instructions")
-    check(sum("_mma_kernel" in s_ for s_ in counts) == 4,
-          f"K1 tensor-core kernels built: {sorted(counts)}")
+              f"{label} kernel {kernel} has {hmma} tensor-core instructions")
+    check(sum("_mma_kernel" in s_ for s_ in counts) == mma_kernels,
+          f"{label} tensor-core kernels built: {sorted(counts)}")
 
 
 def check_zero_padding(y, c: int) -> None:
@@ -292,6 +337,24 @@ def check_zero_padding(y, c: int) -> None:
     check(bool((y[:, :, :HALO] == 0).all() and (y[:, :, -HALO:] == 0).all()),
           "K2: nonzero halo columns in the output")
     check(bool((y[..., c:] == 0).all()), "K2: nonzero pad channels")
+
+
+def first_folds(ops, folds: int):
+    """K2's per-fold operands of the packed level 2 cut to its first
+    ``folds`` folds, as a ``folds``-fold pack: (per-fold operands, dense
+    operands for the plain version)."""
+    w1, wd, *vecs = ops
+    src = esp_group_channels(K2_SHAPE[3], w1.shape[0] * w1.shape[2],
+                             w1.shape[0])[:folds].reshape(-1)
+    dst = esp_group_channels(64 * folds, w1.shape[2] * folds,
+                             folds).reshape(-1)
+    cut = []
+    for v in vecs:
+        out = torch.empty(64 * folds, dtype=v.dtype)
+        out[torch.from_numpy(dst)] = v[torch.from_numpy(src)]
+        cut.append(out)
+    w1, wd = w1[:folds].contiguous(), wd[:folds].contiguous()
+    return [w1, wd, *cut], [*unpack_esp_groups(w1, wd), *cut]
 
 
 # ---------------- the slice: a synthetic slide ----------------
@@ -381,11 +444,11 @@ def check_canvas(canvas, slide, boxes, classes: int, label: str) -> None:
 
 
 def _kernel_group(name: str) -> str:
-    if "esp_dma_reduce_kernel" in name or "esp_dma_branch_kernel" in name:
+    if "esp_dma_" in name:
         return "K2 esp_block_dma"
     if "esp_reduce" in name or "esp_branch" in name:
         return "K1 esp_block"
-    if "nms_kernel" in name:
+    if re.search(r"nms_(sort|mask|scan)_kernel", name):
         return "K3 nms"
     low = name.lower()
     if low.startswith("memcpy") or low.startswith("memset"):
@@ -438,6 +501,18 @@ def trace(fn) -> dict:
             "top_ops": [[name, ms, count] for name, (ms, count) in top_ops]}
 
 
+def kernel_split(prof: dict, pattern: str, calls: int) -> dict:
+    """Device ms per call of each kernel of a trace whose name matches
+    ``pattern`` (its first group names it)."""
+    split = {}
+    for name, ms, _ in prof["top"]:
+        found = re.search(pattern, name)
+        if found:
+            split[found.group(1)] = split.get(found.group(1), 0.0) + \
+                ms / calls
+    return split
+
+
 def print_trace(title: str, prof: dict, name_power: str) -> None:
     print(f"profile {title} (traced run): wall {prof['wall_ms']:.1f} ms, "
           f"device busy {prof['device_busy_ms']:.1f} ms, idle share "
@@ -483,40 +558,47 @@ def outside_boxes_is_background(canvas, boxes) -> bool:
 
 # ---------------- the packed engine ----------------
 def packed_phase(config, fused, slide, boxes, fused_canvas,
-                 name_power: str) -> int:
-    """The fold-packed engine on the bf16 slide, with the plain level 2
-    (``gseg-e2e``'s default), with K2, and with the plain level 3 in place
-    of K1, timed in turns with the fused engine; launch counts and canvases
-    checked; every packed form traced.  Returns K2's launches in its timed
-    run."""
+                 name_power: str) -> tuple:
+    """The fold-packed engine on the bf16 slide with the plain level 2, with
+    K2, and with the plain level 3 in place of K1, timed in turns with the
+    fused engine; launch counts and canvases checked; every packed form
+    traced; the engine's own plain level-2 block timed at K2's shape.
+    Returns (K2's launches in its timed run, that block's ms)."""
     bs = config.batch_size
     n_batches = math.ceil(len(boxes) / bs)
     want_k1 = config.q * len(config.folds) * n_batches
     want_k2 = config.p * n_batches
+    default = EnsembleSegmenter(config, engine="packed")
     engines = {"fused": fused,
-               "packed": EnsembleSegmenter(config, engine="packed"),
+               "packed plain L2": EnsembleSegmenter(config, engine="packed",
+                                                    fuse_level2=False),
                "packed K2": EnsembleSegmenter(config, engine="packed",
                                               fuse_level2=True),
                "packed plain L3": EnsembleSegmenter(config, engine="packed",
                                                     fuse_level3=False)}
-    check(engines["packed"].fuse_level3 and engines["packed K2"].fuse_level2
-          and not engines["packed"].fuse_level2
-          and not engines["packed plain L3"].fuse_level3,
+    check(default.fuse_level3 and not default.fuse_level2
+          and engines["packed K2"].fuse_level2
+          and not engines["packed plain L2"].fuse_level2
+          and not engines["packed plain L3"].fuse_level3
+          and engines["packed plain L3"].fuse_level2 == default.fuse_level2,
           "packed engine options")
-    for name in ("packed", "packed K2", "packed plain L3"):
+    print(f"packed engine default: fuse_level2={default.fuse_level2}, "
+          f"fuse_level3={default.fuse_level3}", flush=True)
+    del default
+    for name in ("packed plain L2", "packed K2", "packed plain L3"):
         segment(engines[name], slide, boxes[:bs])  # warm-up
     secs, peak, counts, canvases = {}, {}, {}, {}
-    # K1 against the plain level 3 nested in turns: plain, kernel, kernel,
-    # plain
-    for name in ("fused", "packed plain L3", "packed", "packed K2",
-                 "packed K2", "packed", "packed plain L3", "fused"):
+    # plain level 2 against K2, nested in K1 against the plain level 3 and
+    # in the fused engine: each pair in turns, plain, kernel, kernel, plain
+    for name in ("fused", "packed plain L3", "packed plain L2", "packed K2",
+                 "packed K2", "packed plain L2", "packed plain L3", "fused"):
         torch.cuda.reset_peak_memory_stats()
         out, t, n = segment(engines[name], slide, boxes)
         peak[name] = max(peak.get(name, 0.0),
                          torch.cuda.max_memory_allocated() / 1e9)
         check_canvas(out, slide, boxes, config.classes, name)
         want = (0 if name == "packed plain L3" else want_k1,
-                want_k2 if name == "packed K2" else 0)
+                want_k2 if engines[name].fuse_level2 else 0)
         if name != "fused":
             check(n == want, f"{name}: (K1, K2) launched {n}, want {want}")
         secs.setdefault(name, []).append(t)
@@ -531,22 +613,56 @@ def packed_phase(config, fused, slide, boxes, fused_canvas,
               f"{peak[name]:.3f} GB; canvas pixels equal to the fused "
               f"engine's first run {(canvases[name] == fused_canvas).mean():.6f}"
               f" | {name_power}", flush=True)
+    gain = [p_ - k_ for p_, k_ in zip(secs["packed plain L2"],
+                                      secs["packed K2"][::-1])]
+    spread = {name: max(secs[name]) - min(secs[name])
+              for name in ("packed plain L2", "packed K2")}
+    ahead = min(gain) > max(spread.values())
+    print(f"fuse_level2 in turns: plain level 2 minus K2, per pair of turns "
+          + ", ".join(f"{g:+.4f}" for g in gain) + " s/slide; spread "
+          f"between turns: plain level 2 {spread['packed plain L2']:.4f}, K2 "
+          f"{spread['packed K2']:.4f} s; K2 ahead in both pairs by more than "
+          f"either spread: {ahead} | {name_power}", flush=True)
     traces = {}
-    for name in ("packed", "packed K2", "packed plain L3"):
+    for name in ("packed plain L2", "packed K2", "packed plain L3"):
         ens = engines[name]
         traces[name] = trace(
             lambda: FusedSlideSegmenter(ens).segment_slide(slide, boxes))
         print_trace(f"bf16 slide, engine {name}", traces[name], name_power)
-    packed = traces["packed"]
-    k1_ms = packed["groups_ms"].get("K1 esp_block", 0.0)
-    print(f"K1 in the traced packed slide: {k1_ms:.1f} ms of "
-          f"{packed['device_busy_ms']:.1f} ms device busy, idle share "
-          f"{packed['idle_share']:.3f}; the CUDA-core K1 took "
-          f"{K1_CUDA_CORE_SLIDE_MS} ms, idle {K1_CUDA_CORE_IDLE}; with the "
-          f"plain level 3: {traces['packed plain L3']['device_busy_ms']:.1f}"
+    # "packed plain L3" keeps the default level 2 (plain): against it, the
+    # default ("packed plain L2") isolates K1, and against that the K2
+    # engine isolates K2
+    plain_l2, with_k2 = traces["packed plain L2"], traces["packed K2"]
+    k1_ms = plain_l2["groups_ms"].get("K1 esp_block", 0.0)
+    print(f"K1 in the traced packed slide (the default, plain level 2): "
+          f"{k1_ms:.1f} ms of {plain_l2['device_busy_ms']:.1f} ms device "
+          f"busy, idle share {plain_l2['idle_share']:.3f}; the CUDA-core K1 "
+          f"took {K1_CUDA_CORE_SLIDE_MS} ms, idle {K1_CUDA_CORE_IDLE}; with "
+          f"the plain level 3: "
+          f"{traces['packed plain L3']['device_busy_ms']:.1f}"
           f" ms busy, idle {traces['packed plain L3']['idle_share']:.3f} | "
           f"{name_power}", flush=True)
-    return counts["packed K2"][1]
+    k2_ms = with_k2["groups_ms"].get("K2 esp_block_dma", 0.0)
+    print(f"K2 in the traced packed K2 slide: {k2_ms:.1f} ms of "
+          f"{with_k2['device_busy_ms']:.1f} ms device busy, idle share "
+          f"{with_k2['idle_share']:.3f}; the CUDA-core K2 took "
+          f"{K2_CUDA_CORE_SLIDE_MS} ms; with the plain level 2: "
+          f"{plain_l2['device_busy_ms']:.1f} ms busy | {name_power}",
+          flush=True)
+    # K2's composed-ops reference: the engine's own plain level-2 block
+    # (bf16 channels-last cuDNN convolutions and elementwise ops) at K2's
+    # shape, one call
+    pack = engines["packed plain L2"]._packed.enc["level2"][0]
+    b_, h_, w_, c_ = K2_SHAPE
+    x = torch.randn((b_, c_, h_, w_), device="cuda").to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        composed_ms = cuda_ms(lambda: _esp_plain(pack, x))
+    print(f"K2 composed-ops reference: the packed engine's plain level-2 "
+          f"block, bf16 channels-last, {tuple(x.shape)}: {composed_ms:.4f} "
+          f"ms per call | {name_power}", flush=True)
+    del x
+    return counts["packed K2"][1], composed_ms
 
 
 def packed_f32_phase(config, slide, boxes, fused_canvas,
@@ -608,6 +724,12 @@ def nms_case(boxes, scores, k: int, thr: float,
         else:
             times[name].append(cuda_ms(
                 lambda: nms_plain(boxes, masked, k, thr), iters=5))
+    # the kernel's own device time beside it: at these sizes a call's event
+    # time is mostly the host's (premask, allocations, three launches)
+    prof = trace(lambda: [nms(boxes, scores, k, thr, score_threshold)
+                          for _ in range(10)])
+    device_ms = prof["groups_ms"].get("K3 nms", 0.0) / 10
+    split = kernel_split(prof, r"(nms_\w+?)_kernel", 10)
     valid = num.long().cpu()
     # a step that emits a box runs the whole IoU pass; the step that finds
     # no live box (when fewer than k are emitted) only the argmax
@@ -617,7 +739,8 @@ def nms_case(boxes, scores, k: int, thr: float,
     t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
     return {"shape": [p, n, k, thr], "emitted": valid.tolist(),
             "max_abs_err": float((idx - want_idx).abs().max()),
-            "ms": float(np.mean(times["kernel"])),
+            "ms": float(np.mean(times["kernel"])), "device_ms": device_ms,
+            "split_ms": split,
             "plain_ms": float(np.mean(times["plain"])),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -628,11 +751,14 @@ def print_nms_case(label: str, r: dict, name_power: str) -> None:
     p, n, k, thr = r["shape"]
     print(f"K3 nms {label} ({p}, {n}) -> {k} IoU {thr}: indices and counts "
           f"equal to nms_plain, emitted {min(r['emitted'])}.."
-          f"{max(r['emitted'])}; kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us by "
-          f"{r['bound_by']} ({r['kbytes']:.1f} kB, {r['mops']:.1f} M ops); "
-          f"library: no single PyTorch call computes greedy NMS | "
-          f"{name_power}", flush=True)
+          f"{max(r['emitted'])}; kernel {r['ms']:.4f} ms a call by events, "
+          f"host included ({r['device_ms']:.4f} ms of device time: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in r["split_ms"].items())
+          + f"), plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+          f"({r['kbytes']:.1f} kB, {r['mops']:.1f} M ops); library: no "
+          f"single PyTorch call computes greedy NMS | {name_power}",
+          flush=True)
 
 
 # ---------------- the detector slice ----------------
@@ -774,8 +900,9 @@ def detector_phases(name_power: str):
                                        det_cfg.max_detections,
                                        det_cfg.second_nms_threshold,
                                        det_cfg.score_threshold)
-    # the frozen-graph backend's pre_nms_top_n (not on this path yet)
-    k3["6000 seeded"] = nms_case(*seeded_nms_problem(8, 2, 6000), 300, 0.7)
+    for p_, n_, k_, thr in K3_LARGE:
+        k3[f"{n_} seeded"] = nms_case(*seeded_nms_problem(8, p_, n_), k_,
+                                      thr)
     for label, r in k3.items():
         print_nms_case(label, r, name_power)
 
@@ -896,7 +1023,8 @@ def main() -> int:
     for src, (seconds, log) in _build.build_log.items():
         print(f"  nvcc {src}.cu {seconds:.2f} s: " + " | ".join(
             ptxas_summary(log)))
-    check_k1_sass(name_power)
+    check_sass("K1", "esp_block", 4, name_power)
+    check_sass("K2", "esp_block_dma", 2, name_power)
 
     # ---- kernels K1 and K2 against their plain versions ----
     classes, p, q = 5, 2, 8
@@ -910,15 +1038,22 @@ def main() -> int:
               pack_esp_weights(sd, "encoder.level3.0.")]
     k1_ops64 = [torch.from_numpy(v) for v in
                 pack_esp_weights(sd, "encoder.level2.0.")]
-    # K2's operands: the first block of the packed level 2 of the 5 folds
+    # K2's operands: the first block of the packed level 2 of the 5 folds,
+    # per fold as the model packs them, and dense from the folds' own packs
+    # for the plain version
+    fold_sds = [load_espnet_state_dict(c) for c in ckpts]
     packed_f32 = PackedEnsembleESPNet(
-        [load_espnet_state_dict(c) for c in ckpts],
-        [FOLD_NORMALIZATION[f][0] for f in range(1, 6)],
+        fold_sds, [FOLD_NORMALIZATION[f][0] for f in range(1, 6)],
         [FOLD_NORMALIZATION[f][1] for f in range(1, 6)],
         fuse_level2=True, dtype=torch.float32)
     k2_ops = [t.cpu() for t in packed_f32.level2_kernel[0]]
-    k2_channels = k2_ops[0].shape[0]
-    del packed_f32
+    k2_dense = [torch.from_numpy(a) for a in _esp_fused_operands(
+        PackedEnsembleESPNet._host_pack(
+            [FusedESPNet(s_, dtype=torch.float32, device="cpu")
+             .enc["level2"][0] for s_ in fold_sds],
+            packed_f32.perm320, packed_f32.perm320))]
+    k2_channels = k2_dense[0].shape[0]
+    del packed_f32, fold_sds
     k1, k2 = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -945,9 +1080,31 @@ def main() -> int:
         k2[dtype] = block_case(
             "K2", esp_block_padded, esp_block_padded_plain, x, k2_ops,
             math.prod(K2_SHAPE[:3]),
-            after=lambda y: check_zero_padding(y, k2_channels))
+            after=lambda y: check_zero_padding(y, k2_channels),
+            plain_operands=k2_dense, groups=K2_FOLDS,
+            split=r"(esp_dma_\w+?)_kernel")
         print_block_case("K2 esp_block_padded", k2[dtype], name_power)
         del x
+        for b_, h_, w_, folds in K2_EDGE_SHAPES:
+            ops, dense = first_folds(k2_ops, folds)
+            for add_residual in (True, False):
+                edge = block_case(
+                    f"K2 {(b_, h_, w_, folds)} residual={add_residual}",
+                    lambda *a: esp_block_padded(*a,
+                                                add_residual=add_residual),
+                    lambda *a: esp_block_padded_plain(
+                        *a, add_residual=add_residual),
+                    esp_pad_io(torch.randn((b_, h_, w_, 64 * folds),
+                                           generator=gen, device="cuda")
+                               .to(dtype)),
+                    ops, 0, timed=False, plain_operands=dense,
+                    after=lambda y, c=64 * folds: check_zero_padding(y, c))
+                print(f"K2 edge {edge['dtype']} {tuple(edge['shape'])} "
+                      f"{folds} folds residual={add_residual}: max abs err "
+                      f"{edge['max_abs_err']:.3e} max rel err "
+                      f"{edge['max_rel_err']:.3e} (tolerance atol "
+                      f"{edge['tolerance'][0]} rtol {edge['tolerance'][1]});"
+                      f" halo columns and pad channels zero", flush=True)
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = tf32
 
@@ -995,8 +1152,8 @@ def main() -> int:
     print_trace("bf16 slide", trace(
         lambda: FusedSlideSegmenter(ensemble).segment_slide(slide, boxes)),
         name_power)
-    k2_launches = packed_phase(config, ensemble, slide, boxes, canvas,
-                               name_power)
+    k2_launches, k2_composed_ms = packed_phase(config, ensemble, slide,
+                                               boxes, canvas, name_power)
     del ensemble
 
     # ---- f32 "highest": kernel paths against their plain versions ----
@@ -1038,7 +1195,7 @@ def main() -> int:
 
     k3, det_launches = detector_phases(name_power)
 
-    def esp_entry(name, source, replaces, r, n_launch):
+    def esp_entry(name, source, replaces, r, n_launch, **extra):
         bf16, f32r = r[torch.bfloat16], r[torch.float32]
         return {
             "name": name, "route": "cuda",
@@ -1048,15 +1205,19 @@ def main() -> int:
             "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
             "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
             "library_ms": None, "dtype": "bfloat16", "shape": bf16["shape"],
+            "gflop": bf16["gflop"], "gflop_dense": bf16["gflop_dense"],
+            "dense_bound_ms": bf16["dense_bound_ms"], **extra,
             "f32": {k: f32r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by")}}
+                                         "bound_ms", "bound_by",
+                                         "dense_bound_ms")}}
 
     k3_main = k3["rpn seeded"]
     print(json.dumps({"kernels": [
         esp_entry("esp_block_fused", "esp_block.cu",
                   "esp_block.py:72 (_esp_kernel)", k1, launches),
         esp_entry("esp_block_padded", "esp_block_dma.cu",
-                  "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches),
+                  "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches,
+                  composed_ms=k2_composed_ms),
         {"name": "nms", "route": "cuda",
          "source": "glomeruli_segmentation_tpu_torch/csrc/nms.cu",
          "replaces": "glomeruli_segmentation_tpu/ops/pallas/nms_pallas.py:27 "
@@ -1067,9 +1228,10 @@ def main() -> int:
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": None, "dtype": "float32",
          "shape": k3_main["shape"],
+         "device_ms": k3_main["device_ms"], "split_ms": k3_main["split_ms"],
          "cases": {label: {k: r[k] for k in (
-             "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
-             for label, r in k3.items()}},
+             "shape", "ms", "device_ms", "split_ms", "plain_ms", "bound_ms",
+             "bound_by")} for label, r in k3.items()}},
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"  // cp.async, ldmatrix, mma.sync, band_chunk
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -246,7 +248,6 @@ cudaError_t launch_all(const void* x, const void* w1, const void* wd,
 }
 
 // ---------------- the bf16 path: tensor cores ----------------
-using bf16 = __nv_bfloat16;
 
 constexpr int kMmaThreads = 256;  // pass A: 8 warps
 constexpr int kHalo = 16;         // the largest dilation
@@ -285,57 +286,6 @@ struct Mma {
       kWeightBytes + kStages * kBandBytes + kIoBytes + 3 * C * 4;
   static constexpr int kReduceSmem = kReduceStages * kReduceTile * XS * 2;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// Physical 16-byte chunk of chunk c of band pixel q.  The 8 rows of an
-// ldmatrix are 8 consecutive pixels; XOR-ing the chunk index with the
-// pixel's position in its 128-byte line puts them in 8 different groups of
-// 4 banks.
-template <int CH>
-__device__ __forceinline__ int band_chunk(int q, int c) {
-  return q * CH + (c ^ ((q >> (CH == 4 ? 1 : 2)) & (CH - 1)));
-}
 
 // wd (5, 9n, n_pad) -> B fragments of every (branch, tap, k step, pair of n8
 // tiles), one uint4 per lane: {tile 2j: k rows 2t..2t+1, 2t+8..2t+9; tile

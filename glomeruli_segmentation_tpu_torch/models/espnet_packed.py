@@ -27,7 +27,9 @@ Level 2 runs through plain torch ops by default (``fuse_level2=False``, the
 JAX package's ``level2="xla"``), or through K2, the padded-layout ESP block
 kernel (:func:`..ops.esp_block.esp_block_padded`), with ``fuse_level2``
 (``level2="pallas"``): padded once, p blocks on the padded layout, unpadded
-once.  Level 3 runs each fold's blocks through K1 with ``fuse_level3``
+once.  K2 takes each block's F diagonal (per-fold) blocks, packed once here
+by :func:`..ops.esp_block.pack_esp_groups`.  Level 3 runs each fold's
+blocks through K1 with ``fuse_level3``
 (``level3="pallas"``) and through plain ops without (``"xla"``).  The JAX
 package's ``interpret`` and ``level2_pack_taps`` are TPU knobs and are not
 ported.  Its ``precision`` becomes the TF32 switches that
@@ -44,7 +46,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.esp_block import esp_block_padded, esp_pad_io, esp_unpad_io
+from ..ops.esp_block import (esp_block_padded, esp_pad_io, esp_unpad_io,
+                             pack_esp_groups)
 from .espnet import avg_pool_3x3_s2
 from .espnet_fused import (FusedESPNet, _affine, _affine_prelu, _conv,
                            _upconv2x2)
@@ -111,8 +114,9 @@ def _permute_vec(vec: np.ndarray, perm: np.ndarray) -> np.ndarray:
 
 
 def _esp_fused_operands(pack: Mapping) -> tuple:
-    """Part-major packed ESP block -> :func:`esp_block_padded` operands
-    ``(w1, wd, scale, bias, alpha)`` as float32 numpy arrays.
+    """Part-major packed ESP block -> the dense operands ``(w1, wd, scale,
+    bias, alpha)`` of :func:`esp_block_padded_plain` as float32 numpy
+    arrays, which :func:`pack_esp_groups` cuts into K2's per-fold ones.
 
     The kernel's output concat ``[d1, add1..add4]`` is the packed engine's
     part-major layout, and its affine takes the already permuted
@@ -268,9 +272,11 @@ class PackedEnsembleESPNet:
                                dtype=self.dtype)
 
     def _kernel_operands(self, ops: tuple) -> tuple:
+        """Dense K2 operands -> the per-fold ones, on the device."""
         w1, wd, scale, bias, alpha = ops
-        return (self._kernel(w1), self._kernel(wd), self._f32(scale),
-                self._f32(bias), self._f32(alpha))
+        w1g, wdg = pack_esp_groups(w1, wd, self.folds)
+        return (self._kernel(w1g.numpy()), self._kernel(wdg.numpy()),
+                self._f32(scale), self._f32(bias), self._f32(alpha))
 
     @staticmethod
     def _host_pack(packs: List[Mapping], in_perm: np.ndarray,

@@ -1,9 +1,10 @@
 """Build the port's CUDA sources into shared libraries at first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it for
-Hopper (``sm_90a``) into ``build/torch_kernels/<name>-<hash>.so`` beside the
-package, where ``<hash>`` covers the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  The library is loaded
+Each ``csrc/<name>.cu`` has a plain C interface and may include the
+``csrc/*.cuh`` headers.  ``nvcc`` compiles it for Hopper (``sm_90a``) into
+``build/torch_kernels/<name>-<hash>.so`` beside the package, where
+``<hash>`` covers the source, the headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  The library is loaded
 with ``ctypes``.  Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
@@ -44,10 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path; its hash covers the source, every header under
+    ``csrc/`` (an edited header rebuilds each source) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> None:

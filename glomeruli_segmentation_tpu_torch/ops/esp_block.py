@@ -6,11 +6,13 @@ kernels compute the same block: ``csrc/esp_block.cu`` (K1, wrapper
 :func:`esp_block_fused`) replaces the Pallas ``_esp_kernel`` on the plain
 (B, H, W, C) layout, and ``csrc/esp_block_dma.cu`` (K2, wrapper
 :func:`esp_block_padded`) replaces the strip-DMA ``_esp_kernel_dma`` on the
-padded layout of :func:`esp_pad_io`.  Each source note says what bounds it
-and how it is laid out.  Operands keep the JAX layout: x is (B, H, W, C)
-NHWC, w1 (C, n), wd (5, 9n, n_pad) with tap = (dy+1)*3 + (dx+1) over
-offsets (-d, 0, +d), and scale, bias and alpha (C,) f32.  BN is folded into
-scale/bias on the host.
+padded layout of :func:`esp_pad_io`, taking G independent blocks side by
+side as their diagonal blocks (:func:`pack_esp_groups`).  Each source note
+says what bounds it and how it is laid out.  Operands keep the JAX layout:
+x is (B, H, W, C) NHWC, w1 (C, n), wd (5, 9n, n_pad) with tap = (dy+1)*3 +
+(dx+1) over offsets (-d, 0, +d), and scale, bias and alpha (C,) f32; K2
+takes w1 and wd cut into groups.  BN is folded into scale/bias on the
+host.
 """
 from __future__ import annotations
 
@@ -101,10 +103,7 @@ def esp_block_plain(x: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
 def _check(x, w1, wd, scale, bias, alpha) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
-    _check_weights(x.shape[3], w1, wd, scale, bias, alpha)
-
-
-def _check_weights(c, w1, wd, scale, bias, alpha) -> None:
+    c = x.shape[3]
     if w1.dim() != 2 or w1.shape[0] != c:
         raise ValueError(f"w1 must be ({c}, n), got {tuple(w1.shape)}")
     n = w1.shape[1]
@@ -243,24 +242,117 @@ def esp_block_padded_plain(x_padded: torch.Tensor, w1: torch.Tensor,
     return _pad_to(y, x_padded.shape[3])
 
 
+def esp_group_channels(c: int, n: int, groups: int) -> np.ndarray:
+    """(groups, C/groups) channel of each group's local channel in the
+    packed engine's part-major layout: group f's d1 at ``f*n1g + [0, n1g)``,
+    its add_k at ``groups*n1g + (k-1)*n + f*ng + [0, ng)`` (ng = n/groups,
+    n1g = (C - 4n)/groups)."""
+    ng, n1g = n // groups, (c - 4 * n) // groups
+    f = np.arange(groups)[:, None]
+    runs = [f * n1g + np.arange(n1g)] + [
+        groups * n1g + k * n + f * ng + np.arange(ng) for k in range(4)]
+    return np.concatenate(runs, axis=1)
+
+
+def _group_widths(c: int, n: int, groups: int) -> Tuple[int, int, int]:
+    n1 = c - 4 * n
+    if groups < 1 or c % groups or n % groups or n1 % groups:
+        raise ValueError(f"C={c}, n={n}, n1={n1} do not split into {groups} "
+                         f"groups")
+    ng, n1g = n // groups, n1 // groups
+    return ng, n1g, max(ng, n1g)
+
+
+def unpack_esp_groups(w1: torch.Tensor, wd: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grouped operands ``(w1 (G, C/G, n/G), wd (G, 5, 9n/G, np))`` -> the
+    dense block-diagonal ``(w1 (C, n), wd (5, 9n, max(n, n1)))`` of
+    :func:`esp_block_plain`, zeros outside the diagonal blocks."""
+    groups, cg, ng = w1.shape
+    c, n = groups * cg, groups * ng
+    n1g = cg - 4 * ng
+    chans = torch.from_numpy(esp_group_channels(c, n, groups))
+    dense_w1 = w1.new_zeros((c, n))
+    dense_wd = wd.new_zeros((5, 9, n, groups * max(ng, n1g)))
+    taps = wd.reshape(groups, 5, 9, ng, -1)
+    for f in range(groups):
+        dense_w1[chans[f, :, None], f * ng + torch.arange(ng)] = w1[f]
+        for br in range(5):
+            width = n1g if br == 0 else ng
+            dense_wd[br, :, f * ng: (f + 1) * ng,
+                     f * width: (f + 1) * width] = taps[f, br, ..., :width]
+    return dense_w1, dense_wd.reshape(5, 9 * n, -1)
+
+
+def pack_esp_groups(w1, wd, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense operands of G independent ESP blocks side by side (the packed
+    engine's level 2: w1 (C, n), wd (5, 9n, n_pad), block-diagonal in the
+    part-major layout of :func:`esp_group_channels`) -> K2's per-group
+    operands ``w1 (G, C/G, n/G)`` (each group's channels in its own concat
+    order) and ``wd (G, 5, 9n/G, np)``, np = max(n, n1)/G, columns past a
+    branch's width zero.  Raises ValueError unless every entry outside the
+    diagonal blocks is exactly zero: K2 multiplies the blocks only."""
+    w1, wd = torch.as_tensor(w1), torch.as_tensor(wd)
+    c, n = w1.shape
+    n1 = c - 4 * n
+    ng, n1g, npg = _group_widths(c, n, groups)
+    if wd.dim() != 3 or wd.shape[:2] != (5, 9 * n) or wd.shape[2] < max(n, n1):
+        raise ValueError(f"wd must be (5, {9 * n}, >= {max(n, n1)}), got "
+                         f"{tuple(wd.shape)}")
+    chans = torch.from_numpy(esp_group_channels(c, n, groups))
+    taps = wd.reshape(5, 9, n, -1)
+    w1g = torch.stack([w1[chans[f]][:, f * ng: (f + 1) * ng]
+                       for f in range(groups)])
+    wdg = wd.new_zeros((groups, 5, 9, ng, npg))
+    for f in range(groups):
+        for br in range(5):
+            width = n1g if br == 0 else ng
+            wdg[f, br, ..., :width] = taps[br, :, f * ng: (f + 1) * ng,
+                                           f * width: (f + 1) * width]
+    wdg = wdg.reshape(groups, 5, 9 * ng, npg)
+    back_w1, back_wd = unpack_esp_groups(w1g, wdg)
+    used = [wd[:1, :, :n1], wd[1:, :, :n]]  # the columns the block reads
+    if not (torch.equal(back_w1, w1)
+            and torch.equal(back_wd[:1, :, :n1], used[0])
+            and torch.equal(back_wd[1:, :, :n], used[1])):
+        raise ValueError(f"w1/wd have nonzero entries outside the {groups} "
+                         f"diagonal blocks of the part-major layout; K2 "
+                         f"computes groups of C={c // groups}, n={ng}, "
+                         f"n1={n1g} and multiplies the blocks only")
+    return w1g.contiguous(), wdg.contiguous()
+
+
 def _check_padded(x_padded, w1, wd, scale, bias, alpha) -> None:
     if x_padded.dim() != 4 or x_padded.shape[2] <= 2 * HALO:
         raise ValueError(f"x_padded must be (B, H, W + {2 * HALO}, C_pad), "
                          f"got {tuple(x_padded.shape)}")
-    if w1.dim() != 2:
-        raise ValueError(f"w1 must be (C, n), got {tuple(w1.shape)}")
-    c, c_pad = w1.shape[0], x_padded.shape[3]
+    if w1.dim() != 3 or wd.dim() != 4:
+        raise ValueError(f"grouped w1 (G, C/G, n/G) and wd (G, 5, 9n/G, np) "
+                         f"from pack_esp_groups expected; got "
+                         f"{tuple(w1.shape)} and {tuple(wd.shape)}")
+    groups, cg, ng = w1.shape
+    c, c_pad = groups * cg, x_padded.shape[3]
     if c_pad not in (c, _round_up(c, 128)):
         raise ValueError(f"x_padded has {c_pad} channels; w1 is {c} wide, "
                          f"so want {c} or {_round_up(c, 128)}")
-    _check_weights(c, w1, wd, scale, bias, alpha)
+    n1g = cg - 4 * ng
+    if n1g < 1 or wd.shape[:3] != (groups, 5, 9 * ng) or \
+            wd.shape[3] < max(ng, n1g):
+        raise ValueError(f"wd must be ({groups}, 5, {9 * ng}, >= "
+                         f"{max(ng, n1g)}), got {tuple(wd.shape)}")
+    for name, t in (("scale", scale), ("bias", bias), ("alpha", alpha)):
+        if t.shape != (c,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({c},) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
 
 
 def _dma_library() -> ctypes.CDLL:
     lib = _build.load("esp_block_dma")
     lib.esp_dma_forward.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     lib.esp_dma_forward.restype = ctypes.c_int
+    lib.esp_dma_scratch_bytes.argtypes = [ctypes.c_int] * 10
+    lib.esp_dma_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -271,13 +363,17 @@ def esp_block_padded(x_padded: torch.Tensor, w1: torch.Tensor,
     """The ESP block on the padded layout, the counterpart of the JAX
     package's ``_esp_dma_call``: (B, H, W + 2*HALO, C_pad) in and out.
 
-    ``w1``, ``wd``, ``scale``, ``bias`` and ``alpha`` are the logical-width
-    operands of :func:`esp_block_fused`.  The output's halo columns and pad
-    channels are exactly zero, so blocks chain on the padded layout.  The
-    TPU kernel pads w1, scale, bias and alpha with zeros to reach that; K2
-    reads the logical channels only and writes the zeros itself, which is
-    the same function for finite inputs.  The halo columns of the input
-    are reduced like any other column, as the TPU kernel reduces them.
+    ``w1`` and ``wd`` are G groups' operands from :func:`pack_esp_groups`
+    (w1 (G, C/G, n/G), wd (G, 5, 9n/G, np)): G independent blocks whose
+    channels interleave part-major, as the packed engine's folds do; the
+    group count is their leading axis.  ``scale``, ``bias`` and ``alpha``
+    are (C,) float32.  The output's halo
+    columns and pad channels are exactly zero, so blocks chain on the
+    padded layout.  The TPU kernel pads w1, scale, bias and alpha with zeros
+    to reach that; K2 reads the logical channels only and writes the zeros
+    itself, which is the same function for finite inputs.  The input's halo
+    columns are zero by contract; the TPU kernel reduces them, K2 takes r
+    there as zero.
 
     The TPU kernel's tiling limits are not carried over: its
     ``H * w_tile <= 8192`` wall and ``w_tile >= HALO`` error are Mosaic
@@ -285,28 +381,44 @@ def esp_block_padded(x_padded: torch.Tensor, w1: torch.Tensor,
     unit.  K2 takes any H and W and has no such argument.
 
     A CUDA tensor goes through K2 (``csrc/esp_block_dma.cu``) or the call
-    raises; a CPU tensor goes through :func:`esp_block_padded_plain`.
-    ``esp_block_padded.launches`` counts kernel launches.
+    raises: K2 is built for 1 to 5 groups of ESPNet's level-2 width (C/G =
+    64, n/G and n1/G at most 16).  A CPU tensor goes through
+    :func:`esp_block_padded_plain` on the dense operands
+    (:func:`unpack_esp_groups`).  ``esp_block_padded.launches`` counts
+    kernel launches.
     """
     _check_padded(x_padded, w1, wd, scale, bias, alpha)
     if x_padded.device.type == "cpu":
-        return esp_block_padded_plain(x_padded, w1, wd, scale, bias, alpha,
-                                      add_residual)
+        return esp_block_padded_plain(x_padded, *unpack_esp_groups(w1, wd),
+                                      scale, bias, alpha, add_residual)
     _check_cuda("esp_block_padded", x_padded, w1, wd, scale, bias, alpha)
     b, h, wp, c_pad = x_padded.shape
-    c, n = w1.shape
-    n_pad = wd.shape[2]
+    groups, cg, ng = w1.shape
+    c, n1g, npg = groups * cg, cg - 4 * ng, wd.shape[3]
+    is_bf16 = int(x_padded.dtype == torch.bfloat16)
     lib = _dma_library()
-    reduced = torch.empty((b, h, wp, n), dtype=x_padded.dtype,
+    nbytes = lib.esp_dma_scratch_bytes(b, h, wp - 2 * HALO, c, c_pad, groups,
+                                       ng, n1g, npg, is_bf16)
+    if nbytes < 0:
+        raise ValueError(
+            f"esp_block_dma kernel is built for 1 to 5 groups of C=64 "
+            f"channels with n and n1 at most 16 (ESPNet level 2 per fold); "
+            f"got {groups} group(s) of C={cg}, n={ng}, n1={n1g}, np={npg}, "
+            f"C_pad={c_pad}")
+    if x_padded.data_ptr() % 16:
+        raise ValueError("x_padded must be 16-byte aligned (the kernel "
+                         "copies it in 16-byte chunks)")
+    # the reduce output and, in bf16, wd in tensor-core fragment order
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                           device=x_padded.device)
     y = torch.empty_like(x_padded)
     with torch.cuda.device(x_padded.device):
         stream = torch.cuda.current_stream(x_padded.device).cuda_stream
         err = lib.esp_dma_forward(
             _ptr(x_padded), _ptr(w1), _ptr(wd), _ptr(scale), _ptr(bias),
-            _ptr(alpha), _ptr(reduced), _ptr(y), b, h, wp - 2 * HALO, c,
-            c_pad, n, c - 4 * n, n_pad, int(add_residual),
-            int(x_padded.dtype == torch.bfloat16), ctypes.c_void_p(stream))
+            _ptr(alpha), _ptr(scratch), _ptr(y), b, h, wp - 2 * HALO, c,
+            c_pad, groups, ng, n1g, npg, int(add_residual), is_bf16,
+            ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"esp_block_dma kernel launch failed: CUDA error "
                            f"{err}")
@@ -322,9 +434,9 @@ def esp_block_fused_dma(x: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
                         alpha: torch.Tensor, add_residual: bool = True
                         ) -> torch.Tensor:
     """Pad, :func:`esp_block_padded`, unpad: the same operands and result
-    as :func:`esp_block_fused`.  A chain of blocks pads once with
-    :func:`esp_pad_io`, calls :func:`esp_block_padded` per block and unpads
-    once at the end."""
-    out = esp_block_padded(esp_pad_io(x), w1, wd, scale, bias, alpha,
-                           add_residual)
+    as :func:`esp_block_fused` (one block is one group).  A chain of blocks
+    pads once with :func:`esp_pad_io`, calls :func:`esp_block_padded` per
+    block and unpads once at the end."""
+    out = esp_block_padded(esp_pad_io(x), w1[None], wd[None], scale, bias,
+                           alpha, add_residual)
     return esp_unpad_io(out, x.shape[3])

@@ -20,7 +20,8 @@ from . import _build
 from .boxes import boxes_area
 
 NEG_INF = -1e10
-# the kernel holds up to 8 boxes in registers in each of 1024 threads
+# the kernel sorts a problem's keys in 64 KB of shared memory (8 bytes a
+# box); the frozen-graph detector's pre_nms_top_n is 6000
 MAX_BOXES = 8192
 
 
@@ -76,9 +77,11 @@ def _library() -> ctypes.CDLL:
     stream as ``c_void_p`` (a bare int would be cut to 32 bits)."""
     lib = _build.load("nms")
     lib.nms_forward.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p])
     lib.nms_forward.restype = ctypes.c_int
+    lib.nms_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.nms_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -105,11 +108,14 @@ def _nms_kernel(boxes: torch.Tensor, scores: torch.Tensor, max_outputs: int,
         num.zero_()
         return out, num
     lib = _library()
+    # the sorted order and boxes, and the (P, N, ceil(N/64)) IoU bitmask
+    scratch = torch.empty(lib.nms_scratch_bytes(p, n), dtype=torch.uint8,
+                          device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.nms_forward(_ptr(boxes), _ptr(scores), _ptr(out), _ptr(num),
-                              p, n, max_outputs, iou_threshold,
-                              ctypes.c_void_p(stream))
+        err = lib.nms_forward(_ptr(boxes), _ptr(scores), _ptr(scratch),
+                              _ptr(out), _ptr(num), p, n, max_outputs,
+                              iou_threshold, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
     nms.launches += 1
@@ -128,9 +134,11 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, max_outputs: int,
     Returns (indices (P, max_outputs) int32 with -1 padding, num_valid (P,)
     int32), without the P axis for unbatched input.
 
-    A CUDA tensor goes through the kernel, all P problems in one launch (or
-    the call raises); a CPU tensor goes through :func:`nms_plain`.
-    ``nms.launches`` counts kernel launches.
+    A CUDA tensor goes through the kernel, all P problems in one call (or
+    the call raises): a sort of each problem's (score, index) keys, the IoU
+    bitmask over that order, and a serial scan, on the current stream.  A
+    CPU tensor goes through :func:`nms_plain`.  ``nms.launches`` counts
+    kernel calls.
     """
     single = boxes.dim() == 2
     if single:

@@ -111,7 +111,11 @@ def test_level2_kernel_operands_match_jax(models):
     assert len(port.heads) == len(FOLDS)
     assert len(port.level2_kernel) == 2
     for i, ops in enumerate(port.level2_kernel):
-        for got, want in zip(ops, ref.level2_kernel):
+        # K2 takes each fold's diagonal blocks; put back into the dense
+        # block-diagonal form they are the JAX kernel's operands exactly
+        assert tuple(ops[0].shape) == (len(FOLDS), 64, 12)
+        dense = (*torch_esp.unpack_esp_groups(ops[0], ops[1]), *ops[2:])
+        for got, want in zip(dense, ref.level2_kernel):
             assert got.dtype == torch.float32
             np.testing.assert_array_equal(got.numpy(), np.asarray(want[i]))
 
