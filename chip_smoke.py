@@ -41,13 +41,25 @@
    output contract; compares the scan with the plain NMS in turns; then
    runs one f32 batch (TF32 off) with and without the kernel, which must
    agree exactly, and traces one bf16 batch;
-7. prints one JSON line of kernel results and, last, one JSON status line.
+7. drives the frozen-graph detector the same way -- the OD-API inception_v2
+   Faster R-CNN (``ODAPIDetectorBackend`` on ``random_od_api_consts(0)``:
+   the published slim widths, BN statistics calibrated on the card, bf16,
+   the host TF1 resize of each 1104-px window to 600x600) over the same
+   stub: K3 against ``nms_plain`` on one batch's real (8, 6000 -> 300)
+   RPN and (8, 300 -> 100) second-stage problems; the timed scan (6 K3
+   launches, output contract, host resize ms per batch); the scan with
+   the plain NMS and with ``device_resize=True`` in turns with it; the cv2
+   resize (``compat_tf1_resize=False``), which must raise where cv2 is
+   missing; one f32 batch with and without K3 (identical); a traced batch;
+8. prints one JSON line of kernel results (K3 once per detector) and,
+   last, one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import re
@@ -66,6 +78,9 @@ from glomeruli_segmentation_tpu_torch.convert.detector_import import (
 from glomeruli_segmentation_tpu_torch.convert.espnet_import import (
     load_espnet_state_dict,
     random_state_dict,
+)
+from glomeruli_segmentation_tpu_torch.convert.pb_import import (
+    random_od_api_consts,
 )
 from glomeruli_segmentation_tpu_torch.models.faster_rcnn import (
     FasterRCNNConfig,
@@ -93,6 +108,7 @@ from glomeruli_segmentation_tpu_torch.ops.esp_block import (
 from glomeruli_segmentation_tpu_torch.ops.nms import nms, nms_plain, premask
 from glomeruli_segmentation_tpu_torch.pipeline.detect import (
     GlomusDetector,
+    ODAPIDetectorBackend,
     TorchDetectorBackend,
 )
 from glomeruli_segmentation_tpu_torch.pipeline.fused import (
@@ -146,6 +162,11 @@ DET_WINDOW_UM, DET_OVERLAP, DET_MPP, DET_BATCH = 2000, 0.1, 0.2265, 8
 DET_WINDOW_PX = 1104
 # level-3 size of the smoke slide (level 0 is 35328 x 26496): 5 x 4 windows
 DET_LEVEL3_HW = (3312, 4416)
+# the frozen-graph detector at that point: keep_aspect_ratio_resizer 600 /
+# 1024 takes the 1104-px window to 600x600 (38 x 38 x 12 = 17,328 anchors),
+# and its NMS problems per window batch of 8 are (P, N, k, IoU)
+OD_RESIZED = (600, 600)
+OD_K3_SHAPES = {"rpn": (8, 6000, 300, 0.7), "second": (8, 300, 100, 0.6)}
 
 
 def check(ok: bool, message: str) -> None:
@@ -960,47 +981,213 @@ def detector_phases(name_power: str):
     del plain_backend
 
     # ---- f32, TF32 off: detections with and without K3 are identical ----
+    f32_same_with_and_without_k3(
+        lambda kernel_nms: TorchDetectorBackend(
+            det_state, det_cfg, batch_size=DET_BATCH,
+            compute_dtype="float32", kernel_nms=kernel_nms),
+        images, name_power, "detector")
+    print_conv_trace("bf16 detector batch", backend, images, model,
+                     torch.from_numpy(images).cuda(), anchors, name_power)
+    return k3, det_launches
+
+
+def print_conv_trace(title: str, backend, images, model, model_input,
+                     anchors, name_power: str) -> None:
+    """A traced ``detect_batch`` of one window batch: device time by group,
+    idle share, and the convolutions' operations over their traced time."""
+    prof = trace(lambda: backend.detect_batch(images))
+    print_trace(f"{title} ({len(images)} windows)", prof, name_power)
+    flops = conv_flops(model, model_input, anchors)
+    conv_ms = prof["groups_ms"].get("cuDNN/cuBLAS conv", 0.0)
+    rate = f"{flops / conv_ms / 1e9:.1f} TFLOP/s" if conv_ms else \
+        "no convolution time traced"
+    print(f"{title}: convolutions and linear layers {flops / 1e12:.3f} "
+          f"TFLOP per batch of {len(images)}; at the traced {conv_ms:.2f} "
+          f"ms {rate} | {name_power}", flush=True)
+
+
+def f32_same_with_and_without_k3(make_backend, images, name_power: str,
+                                 label: str) -> None:
+    """One f32 batch (TF32 off, deterministic cuDNN) through
+    ``make_backend(kernel_nms)`` with and without K3: the detections must
+    be identical."""
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.deterministic)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    f32_runs = {}
-    for kernel_nms in (True, False):
-        b32 = TorchDetectorBackend(det_state, det_cfg, batch_size=DET_BATCH,
-                                   compute_dtype="float32",
-                                   kernel_nms=kernel_nms)
-        nms.launches = 0
-        t0 = time.perf_counter()
-        f32_runs[kernel_nms] = b32.detect_batch(images)
-        f32_runs[kernel_nms] += (time.perf_counter() - t0, nms.launches)
-        del b32
-    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.deterministic) = saved
+    runs = {}
+    try:
+        for kernel_nms in (True, False):
+            b32 = make_backend(kernel_nms)
+            nms.launches = 0
+            t0 = time.perf_counter()
+            runs[kernel_nms] = b32.detect_batch(images)
+            runs[kernel_nms] += (time.perf_counter() - t0, nms.launches)
+            del b32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
     same = all(np.array_equal(a, b) for a, b in
-               zip(f32_runs[True][:4], f32_runs[False][:4]))
-    print(f"detector f32 (TF32 off), one batch of {DET_BATCH}: K3 "
-          f"{f32_runs[True][4]:.4f} s ({f32_runs[True][5]} launches), plain "
-          f"NMS {f32_runs[False][4]:.4f} s ({f32_runs[False][5]} launches); "
-          f"detections identical: {same}; detections per window "
-          f"{f32_runs[True][3].astype(int).tolist()} | {name_power}",
-          flush=True)
-    check(f32_runs[True][5] == 2 and f32_runs[False][5] == 0,
-          "f32 launch counts")
-    check(same, "f32 detections differ with and without K3")
+               zip(runs[True][:4], runs[False][:4]))
+    print(f"{label} f32 (TF32 off), one batch of {len(images)}: K3 "
+          f"{runs[True][4]:.4f} s ({runs[True][5]} launches), plain NMS "
+          f"{runs[False][4]:.4f} s ({runs[False][5]} launches); detections "
+          f"identical: {same}; detections per window "
+          f"{runs[True][3].astype(int).tolist()} | {name_power}", flush=True)
+    check(runs[True][5] == 2 and runs[False][5] == 0,
+          f"{label} f32 launch counts")
+    check(same, f"{label} f32 detections differ with and without K3")
 
-    prof = trace(lambda: backend.detect_batch(images))
-    print_trace(f"bf16 detector batch ({DET_BATCH} windows)", prof,
-                name_power)
-    flops = conv_flops(model, torch.from_numpy(images).cuda(), anchors)
-    conv_ms = prof["groups_ms"].get("cuDNN/cuBLAS conv", 0.0)
-    rate = f"{flops / conv_ms / 1e9:.1f} TFLOP/s" if conv_ms else \
-        "no convolution time traced"
-    print(f"detector convolutions and linear layers: {flops / 1e12:.3f} "
-          f"TFLOP per batch of {DET_BATCH}; at the traced {conv_ms:.2f} ms "
-          f"{rate} | {name_power}", flush=True)
-    return k3, det_launches
+
+# ---------------- the frozen-graph (OD-API) detector ----------------
+def od_api_phases(name_power: str):
+    """The OD-API inception_v2 Faster R-CNN (the reference's frozen graph)
+    at full width on seeded random constants: K3 against its plain version
+    on one batch's real (8, 6000) and (8, 300) problems, the timed scan
+    (6 K3 launches), the resize and NMS options in turns, the cv2 path, the
+    f32 kernel/plain comparison and a traced batch.  Returns (the K3 cases,
+    K3 launches of the timed scan)."""
+    t0 = time.perf_counter()
+    consts = random_od_api_consts(0)
+    calib_s = time.perf_counter() - t0
+    backend = ODAPIDetectorBackend(consts=consts, batch_size=DET_BATCH)
+    cfg = backend.base_config
+    n_params = sum(p.numel() for p in backend.model.parameters())
+    print(f"OD-API detector: inception_v2 Faster R-CNN, {cfg}; "
+          f"{n_params / 1e6:.3f} M parameters (slim inception_v2 at depth "
+          f"multiplier 1.0, RPN depth "
+          f"{backend.params['rpn_conv']['w'].shape[3]}), random constants "
+          f"(seed 0), BN statistics calibrated on the card in {calib_s:.2f} "
+          f"s; compute {backend.compute_dtype}, host TF1 resize", flush=True)
+    slide3 = pyramid_slide(seed=1)
+    step = int(DET_WINDOW_UM / DET_MPP * (1 - DET_OVERLAP))
+    images = np.stack([
+        slide3.read_region_array((step * i, step * j), 3,
+                                 (DET_WINDOW_PX, DET_WINDOW_PX))
+        for j in range(2) for i in range(5)][:DET_BATCH])
+    backend.detect_batch(images)  # warm-up, not counted
+    (rh, rw), model, anchors = backend._model_for(DET_WINDOW_PX,
+                                                  DET_WINDOW_PX)
+    check((rh, rw) == OD_RESIZED, f"resized window {(rh, rw)}")
+    resize_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x = backend.resize_host(images, rh, rw)
+        resize_ms.append((time.perf_counter() - t0) * 1e3)
+    x = x.cuda()
+    with torch.no_grad():
+        feats, obj, deltas = model.first_stage(x)
+        rpn_boxes, rpn_scores = model.rpn_candidates(obj, deltas, anchors)
+        proposals, prop_scores = model.propose(obj, deltas, anchors)
+        cls_logits, box_enc = model.box_classifier(feats, proposals)
+        cand_boxes, cand_scores = model.detection_candidates(
+            proposals, prop_scores, cls_logits, box_enc)
+    del feats
+    check(tuple(rpn_scores.shape) == OD_K3_SHAPES["rpn"][:2]
+          and tuple(cand_scores.shape) == OD_K3_SHAPES["second"][:2],
+          f"OD-API NMS problems {tuple(rpn_scores.shape)}, "
+          f"{tuple(cand_scores.shape)}")
+    k3 = {"od_api rpn proposals": nms_case(
+              rpn_boxes, rpn_scores, cfg.max_proposals,
+              cfg.rpn_nms_threshold),
+          "od_api second candidates": nms_case(
+              cand_boxes, cand_scores, cfg.max_detections,
+              cfg.second_nms_threshold, cfg.second_score_threshold)}
+    for label, r in k3.items():
+        print_nms_case(label, r, name_power)
+    del rpn_boxes, rpn_scores, cand_boxes, cand_scores
+
+    # ---- the timed scan at full width, bf16, host TF1 resize ----
+    detector = GlomusDetector(
+        "OPT_PAS", "", str(WORK), str(WORK / "od_api"), "_smoke",
+        window_size=DET_WINDOW_UM, overlap_ratio=DET_OVERLAP,
+        conf_threshold=0.0, batch_size=DET_BATCH)
+    recorder = RecordingBackend(backend)
+    torch.cuda.reset_peak_memory_stats()
+    od_s, od_launches, od_rows = scan(detector, recorder, slide3,
+                                      WORK / "od_api_kernel.csv")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_windows = math.prod(detector.calc_window_size()[2:4])
+    batches = math.ceil(n_windows / DET_BATCH)
+    check(len(recorder.results) == batches,
+          f"OD-API: {len(recorder.results)} batches read, want {batches}")
+    check(od_launches == 2 * batches,
+          f"OD-API: K3 launched {od_launches} times, want {2 * batches}")
+    n_det = check_detections(recorder.results, cfg.max_detections)
+    check(n_det > 0 and od_rows > 0, "OD-API: no detections")
+    top = max(float(r[1].max()) for r in recorder.results)
+    print(f"OD-API detector slice bf16 batch {DET_BATCH}: {n_windows} "
+          f"windows of {DET_WINDOW_PX}x{DET_WINDOW_PX} resized to {rh}x{rw} "
+          f"in {batches} batches, {od_s:.4f} s/slide, "
+          f"{n_windows / od_s:.2f} windows/s, K3 launches {od_launches}, "
+          f"peak memory {peak_gb:.3f} GB, {n_det} detections (top score "
+          f"{top:.4f}), {od_rows} CSV rows; host TF1 resize "
+          f"{np.median(resize_ms):.1f} ms per batch of {DET_BATCH} (median "
+          f"of 3) | {name_power}", flush=True)
+
+    # ---- host resize with K3, the plain NMS, the device resize: turns ----
+    others = {
+        "plain NMS": ODAPIDetectorBackend(params=backend.params,
+                                          num_classes=1,
+                                          batch_size=DET_BATCH,
+                                          kernel_nms=False),
+        "device resize": ODAPIDetectorBackend(params=backend.params,
+                                              num_classes=1,
+                                              batch_size=DET_BATCH,
+                                              device_resize=True)}
+    for other in others.values():
+        other.detect_batch(images)  # warm-up
+    forms = dict(others, **{"host resize, K3": backend})
+    turns = {"host resize, K3": [od_s], "plain NMS": [],
+             "device resize": []}
+    # the timed scan above is K3's first turn
+    for name in ("plain NMS", "device resize", "device resize", "plain NMS",
+                 "host resize, K3"):
+        secs, n_launch, _ = scan(detector, forms[name], slide3,
+                                 WORK / f"od_api_{name[:5]}.csv")
+        want = 0 if name == "plain NMS" else od_launches
+        check(n_launch == want, f"OD-API {name}: K3 launched {n_launch}")
+        turns[name].append(secs)
+    faster = "device" if np.median(turns["device resize"]) < \
+        np.median(turns["host resize, K3"]) else "host"
+    print("OD-API detector slice bf16 s/slide in turns: " + "; ".join(
+        f"{name} " + ", ".join(f"{s_:.4f}" for s_ in ts)
+        + f" (median {np.median(ts):.4f})" for name, ts in turns.items())
+        + f"; the faster resize here: {faster} | {name_power}", flush=True)
+    del others, forms
+
+    # ---- the cv2 resize takes no other path where cv2 is missing ----
+    cv2_backend = ODAPIDetectorBackend(params=backend.params, num_classes=1,
+                                       batch_size=DET_BATCH,
+                                       compat_tf1_resize=False)
+    if importlib.util.find_spec("cv2") is None:
+        try:
+            cv2_backend.detect_batch(images)
+        except ImportError as e:
+            print(f"OD-API compat_tf1_resize=False with the host resize "
+                  f"raises here (no cv2): {type(e).__name__}: {e}",
+                  flush=True)
+        else:
+            check(False, "compat_tf1_resize=False ran without cv2")
+    else:
+        import cv2
+
+        cv2_backend.detect_batch(images)
+        print(f"OD-API compat_tf1_resize=False: cv2 {cv2.__version__} is "
+              f"present here and resized the windows", flush=True)
+    del cv2_backend
+
+    f32_same_with_and_without_k3(
+        lambda kernel_nms: ODAPIDetectorBackend(
+            params=backend.params, num_classes=1, batch_size=DET_BATCH,
+            compute_dtype="float32", kernel_nms=kernel_nms),
+        images, name_power, "OD-API detector")
+    print_conv_trace("bf16 OD-API detector batch", backend, images, model,
+                     x, anchors, name_power)
+    return k3, od_launches
 
 
 def main() -> int:
@@ -1009,6 +1196,13 @@ def main() -> int:
         return 2
     name_power = card()
     print(name_power)
+    phase_s, t_phase = {}, time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}; "
@@ -1025,6 +1219,8 @@ def main() -> int:
             ptxas_summary(log)))
     check_sass("K1", "esp_block", 4, name_power)
     check_sass("K2", "esp_block_dma", 2, name_power)
+
+    phase_done("build")
 
     # ---- kernels K1 and K2 against their plain versions ----
     classes, p, q = 5, 2, 8
@@ -1107,6 +1303,8 @@ def main() -> int:
                       f" halo columns and pad channels zero", flush=True)
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = tf32
+
+    phase_done("K1 and K2")
 
     # ---- the main path: 5-fold slide segmentation at full width ----
     slide, boxes = synthetic_slide(seed=0, height=6144, width=8192,
@@ -1193,7 +1391,14 @@ def main() -> int:
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = tf32
 
+    phase_done("segmenter")
     k3, det_launches = detector_phases(name_power)
+    phase_done("ResNet detector")
+    od_k3, od_launches = od_api_phases(name_power)
+    phase_done("OD-API detector")
+    print("chip_smoke phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; total {sum(phase_s.values()):.1f} | {name_power}", flush=True)
 
     def esp_entry(name, source, replaces, r, n_launch, **extra):
         bf16, f32r = r[torch.bfloat16], r[torch.float32]
@@ -1211,27 +1416,32 @@ def main() -> int:
                                          "bound_ms", "bound_by",
                                          "dense_bound_ms")}}
 
-    k3_main = k3["rpn seeded"]
+    def nms_entry(path, cases, main_case, n_launch):
+        r = cases[main_case]
+        return {
+            "name": "nms", "route": "cuda",
+            "source": "glomeruli_segmentation_tpu_torch/csrc/nms.cu",
+            "replaces": "glomeruli_segmentation_tpu/ops/pallas/"
+                        "nms_pallas.py:27 (_nms_kernel)",
+            "path": path, "launches": n_launch,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "dtype": "float32", "shape": r["shape"],
+            "device_ms": r["device_ms"], "split_ms": r["split_ms"],
+            "cases": {label: {k: c[k] for k in (
+                "shape", "ms", "device_ms", "split_ms", "plain_ms",
+                "bound_ms", "bound_by")} for label, c in cases.items()}}
+
     print(json.dumps({"kernels": [
         esp_entry("esp_block_fused", "esp_block.cu",
                   "esp_block.py:72 (_esp_kernel)", k1, launches),
         esp_entry("esp_block_padded", "esp_block_dma.cu",
                   "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches,
                   composed_ms=k2_composed_ms),
-        {"name": "nms", "route": "cuda",
-         "source": "glomeruli_segmentation_tpu_torch/csrc/nms.cu",
-         "replaces": "glomeruli_segmentation_tpu/ops/pallas/nms_pallas.py:27 "
-                     "(_nms_kernel)",
-         "launches": det_launches,
-         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
-         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
-         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
-         "library_ms": None, "dtype": "float32",
-         "shape": k3_main["shape"],
-         "device_ms": k3_main["device_ms"], "split_ms": k3_main["split_ms"],
-         "cases": {label: {k: r[k] for k in (
-             "shape", "ms", "device_ms", "split_ms", "plain_ms", "bound_ms",
-             "bound_by")} for label, r in k3.items()}},
+        nms_entry("ResNet-50-C4 detector", k3, "rpn seeded", det_launches),
+        nms_entry("OD-API frozen-graph detector", od_k3,
+                  "od_api rpn proposals", od_launches),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

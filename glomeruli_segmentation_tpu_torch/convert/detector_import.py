@@ -87,7 +87,7 @@ def load_detector_checkpoint(path: str
 
 
 # ---------------- random weights ----------------
-def _calibration_images(rng: np.random.RandomState, batch: int, h: int,
+def calibration_images(rng: np.random.RandomState, batch: int, h: int,
                         w: int) -> np.ndarray:
     """PAS-like RGB windows: pink noise with a few dark round blobs."""
     img = np.clip(rng.randint(-20, 20, (batch, h, w, 3))
@@ -171,7 +171,7 @@ def random_detector_state(seed: int,
     handles = [m.conv.register_forward_hook(hook(name))
                for name, m in bn_layers.items()]
     try:
-        images = torch.from_numpy(_calibration_images(
+        images = torch.from_numpy(calibration_images(
             rng, 2, *calib_size)).to(dev)
         with torch.no_grad():
             model(images, build_anchors(calib).to(dev))

@@ -96,6 +96,47 @@ def top_k(x: torch.Tensor, k: int):
     return values[..., :k], indices[..., :k]
 
 
+def stage_nms(boxes: torch.Tensor, scores: torch.Tensor, k: int,
+              iou_threshold: float, score_threshold: float,
+              kernel_nms: bool = True):
+    """One batched NMS stage: :func:`..ops.nms.nms` (the K3 kernel on a
+    CUDA tensor), or with ``kernel_nms=False`` :func:`..ops.nms.nms_plain`
+    on any device (the GPU's reference path)."""
+    if kernel_nms:
+        return nms(boxes, scores, k, iou_threshold, score_threshold)
+    return nms_plain(boxes, premask(scores, score_threshold), k,
+                     iou_threshold)
+
+
+def select_detections(boxes: torch.Tensor, scores: torch.Tensor,
+                      keep: torch.Tensor, windows: int, height: int,
+                      width: int) -> Dict[str, torch.Tensor]:
+    """The per-class NMS survivors -> the frozen-graph output contract.
+
+    ``boxes`` (N * C, P, 4) and ``scores`` (N * C, P) are the second
+    stage's NMS problems, window-major, and ``keep`` (N * C, M) their
+    survivors.  Per window the C x M kept slots (class-major, padded slots
+    scored ``NEG_PAD``) go through a stable top-M; slots past the last
+    detection get zero boxes and scores, and their classes are kept."""
+    m = keep.shape[1]
+    classes_n = boxes.shape[0] // windows
+    boxes = gather_padded(boxes, keep).reshape(windows, classes_n * m, 4)
+    scores = gather_padded(scores, keep, NEG_PAD).reshape(
+        windows, classes_n * m)
+    classes = torch.arange(1, classes_n + 1, dtype=torch.float32,
+                           device=boxes.device).repeat_interleave(m)
+    top_scores, top_idx = top_k(scores, m)
+    rows = torch.arange(windows, device=boxes.device)[:, None]
+    boxes = boxes[rows, top_idx]
+    classes = classes[top_idx]
+    valid = top_scores > NEG_PAD / 2
+    norm = normalize_boxes(boxes, height, width)
+    return {"detection_boxes": torch.where(valid[..., None], norm, 0.0),
+            "detection_scores": torch.where(valid, top_scores, 0.0),
+            "detection_classes": classes,
+            "num_detections": valid.sum(dim=1).float()}
+
+
 class RPNHead(nn.Module):
     def __init__(self, in_ch: int, num_anchors: int):
         super().__init__()
@@ -173,10 +214,8 @@ class FasterRCNN(nn.Module):
         return next(self.parameters()).dtype
 
     def _nms(self, boxes, scores, k, iou_threshold, score_threshold):
-        if self.kernel_nms:
-            return nms(boxes, scores, k, iou_threshold, score_threshold)
-        return nms_plain(boxes, premask(scores, score_threshold), k,
-                         iou_threshold)
+        return stage_nms(boxes, scores, k, iou_threshold, score_threshold,
+                         self.kernel_nms)
 
     def preprocess(self, images: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) RGB -> (N, 3, H, W) in the compute type, channels_last
@@ -282,28 +321,12 @@ class FasterRCNN(nn.Module):
         """Second-stage outputs -> the frozen-graph output contract; the
         per-class NMS of every window and class is one batched call."""
         cfg = self.config
-        h, w = cfg.image_size
-        n = proposals.shape[0]
-        classes_n, m = cfg.num_classes, cfg.max_detections
         boxes, scores = self.detection_candidates(proposals, class_scores,
                                                   box_deltas)
-        keep, _ = self._nms(boxes, scores, m, cfg.second_nms_threshold,
-                            cfg.score_threshold)
-        boxes = gather_padded(boxes, keep).reshape(n, classes_n * m, 4)
-        scores = gather_padded(scores, keep, NEG_PAD).reshape(
-            n, classes_n * m)
-        classes = torch.arange(1, classes_n + 1, dtype=torch.float32,
-                               device=boxes.device).repeat_interleave(m)
-        top_scores, top_idx = top_k(scores, m)
-        rows = torch.arange(n, device=boxes.device)[:, None]
-        boxes = boxes[rows, top_idx]
-        classes = classes[top_idx]
-        valid = top_scores > NEG_PAD / 2
-        norm = normalize_boxes(boxes, h, w)
-        return {"detection_boxes": torch.where(valid[..., None], norm, 0.0),
-                "detection_scores": torch.where(valid, top_scores, 0.0),
-                "detection_classes": classes,
-                "num_detections": valid.sum(dim=1).float()}
+        keep, _ = self._nms(boxes, scores, cfg.max_detections,
+                            cfg.second_nms_threshold, cfg.score_threshold)
+        return select_detections(boxes, scores, keep, proposals.shape[0],
+                                 *cfg.image_size)
 
     @torch.no_grad()
     def detect(self, images: torch.Tensor, anchors: torch.Tensor

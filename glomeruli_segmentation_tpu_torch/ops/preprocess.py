@@ -125,8 +125,20 @@ def pack_crops_flat(crops, batch_size: int, max_w: int = 0, max_h: int = 0,
     total = min(total, FLAT_OFFSET_LIMIT)
     flat = np.zeros(total, np.uint8)
     for i, c in enumerate(crops[:n]):
-        flat[offsets[i]: offsets[i] + c.size] = c.reshape(-1)
+        copy_pixels(flat[offsets[i]: offsets[i] + c.size].reshape(c.shape), c)
     return flat, offsets.astype(np.int32), heights, widths
+
+
+def copy_pixels(dst: np.ndarray, src: np.ndarray) -> None:
+    """``dst[...] = src`` for (H, W, C) images.  A view with reversed
+    channels (the BGR view of an RGB read) goes one channel at a time:
+    numpy copies it whole pixel by pixel, a 3-element inner loop, several
+    times slower than three strided passes."""
+    if src.flags.c_contiguous:
+        dst[...] = src
+        return
+    for ch in range(src.shape[-1]):
+        dst[..., ch] = src[..., ch]
 
 
 def postprocess_nearest_host(class_map: np.ndarray, out_h: int,

@@ -7,9 +7,11 @@ write CSV rows in level-0 pixel coordinates.  :class:`TorchDetectorBackend`
 is the counterpart of ``JaxDetectorBackend``: the ResNet-50-C4 Faster R-CNN
 (:mod:`..models.faster_rcnn`), one model view and anchor set per window
 geometry, results packed on the device and read back once per batch.
+:class:`ODAPIDetectorBackend` runs the reference's own detector, the OD-API
+frozen graph (:mod:`..models.od_api_frcnn`), the same way.
 
 Not ported yet: ``split_all``/``split`` (target list, slide files, the
-timing log and ``resume``), the PNG path and the frozen-graph backend.
+timing log and ``resume``), the PNG path and the data-parallel mesh.
 :meth:`GlomusDetector.scan_slide` takes an open slide object.
 """
 from __future__ import annotations
@@ -25,7 +27,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..convert.pb_import import (assemble_od_api_params,
+                                 load_od_api_detector_params)
 from ..models.faster_rcnn import FasterRCNN, FasterRCNNConfig, build_anchors
+from ..models.od_api_frcnn import (ODAPIConfig, ODAPIFasterRCNN,
+                                   keep_aspect_resize_shape)
+from ..models.od_api_frcnn import build_anchors as build_od_api_anchors
+from ..ops.resize import (resize_bilinear, resize_bilinear_tf1,
+                          resize_bilinear_tf1_np)
 from ..utils.glomus_handler import GlomusHandler
 from ..wsi import (PROPERTY_NAME_MPP_X, PROPERTY_NAME_MPP_Y,
                    PROPERTY_NAME_OBJECTIVE_POWER)
@@ -77,7 +86,18 @@ def unpack_detections(packed: np.ndarray):
             packed[:, -1])
 
 
-class TorchDetectorBackend(DetectorBackend):
+class _PackedBackend(DetectorBackend):
+    """A device backend whose ``detect_batch_submit`` returns the packed
+    result of :func:`pack_detections`, read back with one copy."""
+
+    def read_detections(self, handle: torch.Tensor):
+        return unpack_detections(handle.cpu().numpy())
+
+    def detect_batch(self, images: np.ndarray):
+        return self.read_detections(self.detect_batch_submit(images))
+
+
+class TorchDetectorBackend(_PackedBackend):
     """Faster R-CNN backend on ``device`` (CUDA unless the caller passes
     ``device="cpu"``).
 
@@ -119,11 +139,105 @@ class TorchDetectorBackend(DetectorBackend):
         x = x.to(self.device, non_blocking=True)
         return pack_detections(model.detect(x, anchors))
 
-    def read_detections(self, handle: torch.Tensor):
-        return unpack_detections(handle.cpu().numpy())
 
-    def detect_batch(self, images: np.ndarray):
-        return self.read_detections(self.detect_batch_submit(images))
+class ODAPIDetectorBackend(_PackedBackend):
+    """The reference's OD-API frozen graph (``frozen_inference_graph.pb``)
+    on ``device`` (CUDA unless the caller passes ``device="cpu"``): its
+    constants assembled into :class:`..models.od_api_frcnn.ODAPIFasterRCNN`
+    (inception_v2, BN folded), one model view and anchor set per window
+    geometry.  Counterpart of the JAX package's ``ODAPIDetectorBackend``.
+
+    Weights come from ``pb_path``, or ``consts`` (an extracted constant
+    dict), or ``params`` (an assembled tree, with ``num_classes``).  A
+    window is first resized to the graph's ``keep_aspect_ratio_resizer``
+    shape (:func:`..models.od_api_frcnn.keep_aspect_resize_shape`):
+
+    - by default on the host, with TF1 sampling (:func:`..ops.resize.
+      resize_bilinear_tf1_np`), the float result cast to the compute type
+      before the upload (in torch: numpy has no bfloat16);
+    - ``compat_tf1_resize=False``: cv2 half-pixel bilinear on the host.
+      cv2 is imported on first use, so this raises where cv2 is missing;
+    - ``device_resize=True``: after the upload, on the device
+      (:func:`..ops.resize.resize_bilinear_tf1` or ``resize_bilinear``).
+
+    Normalized output boxes are aspect-preserving, so they map back to the
+    window unchanged.  ``kernel_nms`` and the async pair are as in
+    :class:`TorchDetectorBackend`; ``config_overrides`` are
+    :class:`..models.od_api_frcnn.ODAPIConfig` fields.
+    """
+
+    def __init__(self, pb_path: Optional[str] = None, batch_size: int = 8,
+                 compute_dtype: str = "bfloat16", consts=None, params=None,
+                 num_classes: Optional[int] = None,
+                 device_resize: bool = False, compat_tf1_resize: bool = True,
+                 device="cuda", kernel_nms: bool = True,
+                 **config_overrides):
+        if params is not None:
+            if num_classes is None:
+                raise ValueError("params requires num_classes")
+            self.params, self.num_classes = params, num_classes
+        elif consts is not None:
+            self.params, self.num_classes = assemble_od_api_params(consts)
+        else:
+            self.params, self.num_classes = load_od_api_detector_params(
+                pb_path)
+        self.batch_size = batch_size
+        self.compute_dtype = compute_dtype
+        self.device_resize = device_resize
+        self.compat_tf1_resize = compat_tf1_resize
+        self.device = resolve_device(device)
+        self.base_config = ODAPIConfig(num_classes=self.num_classes,
+                                       **config_overrides)
+        self.model = ODAPIFasterRCNN(
+            self.params, self.base_config, compute_dtype, kernel_nms) \
+            .to(self.device, memory_format=torch.channels_last).eval()
+        self._geometry = {}
+
+    def _model_for(self, h: int, w: int):
+        """-> (resized shape, model view, anchors) of an h x w window."""
+        key = (h, w)
+        if key not in self._geometry:
+            cfg = self.base_config
+            rh, rw = keep_aspect_resize_shape(h, w, cfg.min_dimension,
+                                              cfg.max_dimension)
+            model = self.model.with_image_size(rh, rw)
+            anchors = build_od_api_anchors(model.config).to(self.device)
+            self._geometry[key] = ((rh, rw), model, anchors)
+        return self._geometry[key]
+
+    def resize_host(self, images: np.ndarray, rh: int, rw: int
+                    ) -> torch.Tensor:
+        """The host resize of a window batch -> a CPU tensor to upload."""
+        if self.compat_tf1_resize:
+            resized = np.stack([resize_bilinear_tf1_np(im, rh, rw)
+                                for im in images])
+            return torch.from_numpy(resized).to(_DTYPES[self.compute_dtype])
+        import cv2
+
+        return torch.from_numpy(np.stack([
+            cv2.resize(im, (rw, rh), interpolation=cv2.INTER_LINEAR)
+            for im in images]))
+
+    @torch.inference_mode()
+    def detect_batch_submit(self, images: np.ndarray) -> torch.Tensor:
+        """Resize (on the host by default), upload through pinned memory
+        without waiting for the device, launch; returns the packed device
+        result unread."""
+        h, w = images.shape[1:3]
+        (rh, rw), model, anchors = self._model_for(h, w)
+        resize = (rh, rw) != (h, w)
+        if resize and not self.device_resize:
+            x = self.resize_host(images, rh, rw)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(images))
+        if self.device.type == "cuda":
+            x = x.pin_memory()
+        x = x.to(self.device, non_blocking=True)
+        if resize and self.device_resize:
+            op = (resize_bilinear_tf1 if self.compat_tf1_resize
+                  else resize_bilinear)
+            x = op(x, rh, rw)
+        return pack_detections(model.detect(x, anchors))
 
 
 def threshold_boxes(boxes: np.ndarray, scores: np.ndarray, window_x: int,

@@ -34,8 +34,9 @@ from .. import resolve_device
 from ..convert.espnet_import import load_espnet_state_dict
 from ..models.espnet_fused import FusedESPNet
 from ..models.espnet_packed import PackedEnsembleESPNet
-from ..ops.preprocess import (FLAT_OFFSET_LIMIT, flat_bytes_needed,
-                              pack_crops_flat, postprocess_nearest_host,
+from ..ops.preprocess import (FLAT_OFFSET_LIMIT, copy_pixels,
+                              flat_bytes_needed, pack_crops_flat,
+                              postprocess_nearest_host,
                               resize_bilinear_dynamic, unflatten_crops)
 
 log = logging.getLogger(__name__)
@@ -72,6 +73,21 @@ class EnsembleConfig:
     accum_dtype: str = "float32"
     # base-`classes` packing of the full-resolution readback: not ported
     pack_output: bool = False
+
+
+def pack_tables(tables: Sequence[np.ndarray]):
+    """int32 arrays -> (one flat int32 buffer, their shapes), so a batch's
+    small tables are uploaded with one copy."""
+    buf = np.concatenate([np.asarray(t, np.int32).reshape(-1)
+                          for t in tables])
+    return buf, [np.shape(t) for t in tables]
+
+
+def unpack_tables(buf: torch.Tensor, shapes) -> List[torch.Tensor]:
+    """The inverse of :func:`pack_tables` on the buffer's device: views of
+    ``buf``, no copy."""
+    sizes = [int(np.prod(s)) for s in shapes]
+    return [part.view(s) for part, s in zip(buf.split(sizes), shapes)]
 
 
 @contextlib.contextmanager
@@ -150,8 +166,21 @@ class EnsembleSegmenter:
                                  device=self.device)   # (F, 3) BGR
         self.std = torch.tensor(stds, dtype=torch.float32, device=self.device)
 
-    def _to(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _upload(self, data: np.ndarray, *tables: np.ndarray):
+        """``data`` (the crop bytes) and the int32 ``tables`` as tensors on
+        the device.  On a card the tables go up as one buffer, split on the
+        device, and both copies are made from pinned memory without waiting
+        for the device, so batch N+1 is uploaded and launched while batch N
+        runs.  The pinned buffers come from torch's host allocator, which
+        reuses none before the copy that reads it has run.  On the CPU
+        these are views of the arrays."""
+        if self.device.type != "cuda":
+            return [torch.from_numpy(np.ascontiguousarray(a))
+                    for a in (data,) + tables]
+        buf, shapes = pack_tables(tables)
+        data, buf = (torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                     .to(self.device, non_blocking=True) for a in (data, buf))
+        return [data, *unpack_tables(buf, shapes)]
 
     def _resize_batch(self, padded, heights, widths) -> torch.Tensor:
         cfg = self.config
@@ -195,15 +224,32 @@ class EnsembleSegmenter:
         return maps[batch[:, None, None], ys.long()[:, :, None],
                     xs.long()[:, None, :]]
 
-    def read_maps(self, out: torch.Tensor) -> np.ndarray:
+    def _readback(self, out: torch.Tensor):
+        """A ``submit_batch*`` handle.  On a card the copy of ``out`` into
+        pinned host memory is enqueued right behind the batch's kernels,
+        with an event after it, so reading batch N waits for batch N only,
+        not for batch N+1 launched before the read."""
+        if out.device.type != "cuda":
+            return out
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def read_maps(self, handle) -> np.ndarray:
         """A ``submit_batch*`` handle as host uint8 class maps."""
-        return out.cpu().numpy()
+        if isinstance(handle, tuple):
+            host, done = handle
+            done.synchronize()
+            return host.numpy()
+        return handle.cpu().numpy()
 
     def submit_batch_padded(self, padded: np.ndarray, heights: np.ndarray,
-                            widths: np.ndarray) -> torch.Tensor:
-        """Async: (B, maxH, maxW, 3) uint8 BGR -> device (B, in_h, in_w)."""
-        return self._forward(self._to(padded), self._to(heights),
-                             self._to(widths))
+                            widths: np.ndarray):
+        """Async: (B, maxH, maxW, 3) uint8 BGR -> (B, in_h, in_w)."""
+        return self._readback(self._forward(*self._upload(padded, heights,
+                                                          widths)))
 
     def segment_batch_padded(self, padded: np.ndarray, heights: np.ndarray,
                              widths: np.ndarray) -> np.ndarray:
@@ -212,11 +258,10 @@ class EnsembleSegmenter:
 
     def submit_batch_gather(self, padded: np.ndarray, heights: np.ndarray,
                             widths: np.ndarray, ys: np.ndarray,
-                            xs: np.ndarray) -> torch.Tensor:
-        """Async: transfer + launch, return the device result unread."""
-        return self._forward_gather(self._to(padded), self._to(heights),
-                                    self._to(widths), self._to(ys),
-                                    self._to(xs))
+                            xs: np.ndarray):
+        """Async: transfer + launch, return the result unread."""
+        return self._readback(self._forward_gather(
+            *self._upload(padded, heights, widths, ys, xs)))
 
     def segment_batch_gather(self, padded: np.ndarray, heights: np.ndarray,
                              widths: np.ndarray, ys: np.ndarray,
@@ -227,23 +272,21 @@ class EnsembleSegmenter:
 
     def submit_batch_flat(self, flat: np.ndarray, offsets: np.ndarray,
                           heights: np.ndarray, widths: np.ndarray,
-                          max_h: int, max_w: int) -> torch.Tensor:
+                          max_h: int, max_w: int):
         """Async flat-transfer forward (full-resolution class maps)."""
-        hs, ws = self._to(heights), self._to(widths)
-        padded = unflatten_crops(self._to(flat), self._to(offsets), hs, ws,
-                                 max_h, max_w)
-        return self._forward(padded, hs, ws)
+        flat, offs, hs, ws = self._upload(flat, offsets, heights, widths)
+        padded = unflatten_crops(flat, offs, hs, ws, max_h, max_w)
+        return self._readback(self._forward(padded, hs, ws))
 
     def submit_batch_gather_flat(self, flat: np.ndarray, offsets: np.ndarray,
                                  heights: np.ndarray, widths: np.ndarray,
                                  ys: np.ndarray, xs: np.ndarray,
-                                 max_h: int, max_w: int) -> torch.Tensor:
+                                 max_h: int, max_w: int):
         """Async flat-transfer forward + on-device /8 stitch gather."""
-        hs, ws = self._to(heights), self._to(widths)
-        padded = unflatten_crops(self._to(flat), self._to(offsets), hs, ws,
-                                 max_h, max_w)
-        return self._forward_gather(padded, hs, ws, self._to(ys),
-                                    self._to(xs))
+        flat, offs, hs, ws, ys, xs = self._upload(flat, offsets, heights,
+                                                  widths, ys, xs)
+        padded = unflatten_crops(flat, offs, hs, ws, max_h, max_w)
+        return self._readback(self._forward_gather(padded, hs, ws, ys, xs))
 
 
 class FusedSlideSegmenter:
@@ -306,7 +349,7 @@ class FusedSlideSegmenter:
                 hs = np.ones(bs, np.int32)
                 ws = np.ones(bs, np.int32)
                 for i, c in enumerate(crops):
-                    staged[i, : c.shape[0], : c.shape[1]] = c
+                    copy_pixels(staged[i, : c.shape[0], : c.shape[1]], c)
                     hs[i], ws[i] = c.shape[:2]
             if not ds8:
                 return chunk, n, staged, hs, ws, None, None
@@ -377,7 +420,8 @@ class FusedSlideSegmenter:
                 print(f"{done}/{len(boxes)} crops")
 
         # batch N+1 is launched before batch N is read back, so its
-        # transfer and launch overlap the device's work on batch N
+        # transfer and launch overlap the device's work on batch N (and the
+        # read of batch N waits for batch N only, see _readback)
         pending = None
         while True:
             item = q.get()

@@ -235,3 +235,22 @@ def test_bf16_path_tracks_jax(checkpoints, port):
     f32 = port.segment_batch_padded(padded, hs, ws)
     assert (got == want).mean() >= 0.99
     assert (got == f32).mean() >= 0.98
+
+
+def test_upload_tables_round_trip():
+    """The int32 tables a batch uploads as one buffer on a card (offsets,
+    heights, widths, ys, xs) split back into the same arrays."""
+    rng = np.random.RandomState(0)
+    tables = [rng.randint(0, 2**31 - 1, 8).astype(np.int32),
+              rng.randint(1, 1200, 8).astype(np.int32),
+              np.ones(8, np.int32),
+              rng.randint(0, 512, (8, 96)).astype(np.int32),
+              rng.randint(0, 1024, (8, 160)).astype(np.int32)]
+    buf, shapes = port_fused.pack_tables(tables)
+    assert buf.dtype == np.int32 and buf.ndim == 1
+    assert buf.size == sum(t.size for t in tables)
+    got = port_fused.unpack_tables(torch.from_numpy(buf), shapes)
+    assert len(got) == len(tables)
+    for g, t in zip(got, tables):
+        assert g.dtype == torch.int32 and g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), t)

@@ -44,6 +44,33 @@ def test_pack_crops_flat_matches_jax(max_h):
         jax_prep.flat_quantum(4, max_h, 512)
 
 
+def test_pack_crops_flat_of_bgr_views_matches_jax():
+    """The slide loop packs the channel-reversed (BGR) views of RGB reads;
+    the port copies those one channel at a time, to the same bytes."""
+    rng = np.random.RandomState(8)
+    crops = [rng.randint(0, 255, (h, w, 3)).astype(np.uint8)[:, :, ::-1]
+             for h, w in [(300, 400), (512, 256), (1, 3), (123, 457)]]
+    assert not crops[0].flags.c_contiguous
+    want = jax_prep.pack_crops_flat(crops, 5, max_w=512, max_h=512)
+    got = port_prep.pack_crops_flat(crops, 5, max_w=512, max_h=512)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("view", ["contiguous", "bgr", "window"])
+def test_copy_pixels_is_an_assignment(view):
+    rng = np.random.RandomState(9)
+    src = rng.randint(0, 255, (40, 70, 3)).astype(np.uint8)
+    src = {"contiguous": src, "bgr": src[:, :, ::-1],
+           "window": src[5:30, 10:60, ::-1]}[view]
+    dst = np.zeros((50, 80, 3), np.uint8)
+    want = dst.copy()
+    want[: src.shape[0], : src.shape[1]] = src
+    port_prep.copy_pixels(dst[: src.shape[0], : src.shape[1]], src)
+    np.testing.assert_array_equal(dst, want)
+
+
 def test_pack_crops_flat_refuses_over_limit(monkeypatch):
     monkeypatch.setattr(port_prep, "FLAT_OFFSET_LIMIT", 1024)
     with pytest.raises(ValueError, match="int32"):
