@@ -51,8 +51,22 @@
    the plain NMS and with ``device_resize=True`` in turns with it; the cv2
    resize (``compat_tf1_resize=False``), which must raise where cv2 is
    missing; one f32 batch with and without K3 (identical); a traced batch;
-8. prints one JSON line of kernel results (K3 once per detector) and,
-   last, one JSON status line.
+   and holds the event-based readback of one batch, read after the next
+   batch is launched, to a plain ``.cpu()`` copy;
+8. drives the end-to-end pipeline (``gseg-e2e``) at full width through
+   ``cli/e2e.py``'s ``build_pipeline`` at the CLI's defaults (the OD-API
+   detector on ``random_od_api_consts(E2E_DETECTOR_SEED)`` with the host
+   TF1 resize, the packed ensemble at crop batch 32, bf16) over a
+   35328x26496 pyramidal TIFF written by the port's ``wsi/synthetic.py``
+   and read by its ``open_slide``: three jobs pipelined and serial (merged
+   CSV, labelme JSONs and overlays byte-identical, canvases background
+   outside the boxes, at least one full crop batch), with the K1 and K3
+   counts set to 0 before the pipelined run and read after it, the serial
+   run traced; then one slide with ``--no_json``, and one with
+   ``--no_json --device_resize``, with host spans (reads, resize,
+   packing, JSONs, overlay) per run;
+9. prints one JSON line of kernel results (K3 once per detector, each with
+   its launches in the e2e run) and, last, one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
@@ -62,16 +76,23 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from glomeruli_segmentation_tpu_torch import read_host, readback, tf32
+from glomeruli_segmentation_tpu_torch.cli.e2e import (
+    build_parser,
+    build_pipeline,
+)
 from glomeruli_segmentation_tpu_torch.convert.detector_import import (
     random_detector_state,
 )
@@ -106,17 +127,25 @@ from glomeruli_segmentation_tpu_torch.ops.esp_block import (
     unpack_esp_groups,
 )
 from glomeruli_segmentation_tpu_torch.ops.nms import nms, nms_plain, premask
+from glomeruli_segmentation_tpu_torch.pipeline import e2e as e2e_module
+from glomeruli_segmentation_tpu_torch.pipeline import fused as fused_module
 from glomeruli_segmentation_tpu_torch.pipeline.detect import (
     GlomusDetector,
     ODAPIDetectorBackend,
     TorchDetectorBackend,
+    pack_detections,
 )
+from glomeruli_segmentation_tpu_torch.pipeline.e2e import FusedEndToEnd
 from glomeruli_segmentation_tpu_torch.pipeline.fused import (
     FOLD_NORMALIZATION,
     EnsembleConfig,
     EnsembleSegmenter,
     FusedSlideSegmenter,
 )
+from glomeruli_segmentation_tpu_torch.wsi.synthetic import (
+    write_pyramidal_tiff,
+)
+from glomeruli_segmentation_tpu_torch.wsi.tiff_reader import Slide
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -167,6 +196,21 @@ DET_LEVEL3_HW = (3312, 4416)
 # and its NMS problems per window batch of 8 are (P, N, k, IoU)
 OD_RESIZED = (600, 600)
 OD_K3_SHAPES = {"rpn": (8, 6000, 300, 0.7), "second": (8, 300, 100, 0.6)}
+# the end-to-end phase: three jobs (patient ids) over one written slide, so
+# that run_slides overlaps slides; level 0 is the detector stub's level 3
+# in 8x8 blocks (35328 x 26496 at 0.2265 um/px, 40x), so the scan reads the
+# same 20 windows at level 3
+E2E_JOBS = ("E2E-1", "E2E-2", "E2E-3")
+# JPEG q90 tiles, the synthetic writer's default: the card's machine has
+# PIL (12.2.0 when this was set), which the reader decodes them with
+E2E_COMPRESSION = "jpeg"
+# random_od_api_consts seed of the e2e detector: its scores decide how many
+# boxes pass the CLI's thresholds (conf 0.2, merge 0.9) and how large they
+# are.  Seed 0 merges 134 boxes a slide, none degenerate (e2e_seeds.py);
+# seed 4's boxes are smaller, but some have zero height, which the
+# segmenter of both packages cannot crop
+
+E2E_DETECTOR_SEED = 0
 
 
 def check(ok: bool, message: str) -> None:
@@ -182,9 +226,10 @@ def card() -> str:
     return out[0]
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches, after warm-up."""
-    for _ in range(3):
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches, after
+    ``warmup`` launches."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -743,8 +788,9 @@ def nms_case(boxes, scores, k: int, thr: float,
             times[name].append(cuda_ms(
                 lambda: nms(boxes, scores, k, thr, score_threshold)))
         else:
+            # 150 to 250 ms a call: few repeats keep the phase short
             times[name].append(cuda_ms(
-                lambda: nms_plain(boxes, masked, k, thr), iters=5))
+                lambda: nms_plain(boxes, masked, k, thr), iters=2, warmup=1))
     # the kernel's own device time beside it: at these sizes a call's event
     # time is mostly the host's (premask, allocations, three launches)
     prof = trace(lambda: [nms(boxes, scores, k, thr, score_threshold)
@@ -1008,14 +1054,10 @@ def print_conv_trace(title: str, backend, images, model, model_input,
 
 def f32_same_with_and_without_k3(make_backend, images, name_power: str,
                                  label: str) -> None:
-    """One f32 batch (TF32 off, deterministic cuDNN) through
-    ``make_backend(kernel_nms)`` with and without K3: the detections must
-    be identical."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """One f32 batch (deterministic cuDNN; the backend's own TF32
+    settings, cuDNN on and matmul off) through ``make_backend(kernel_nms)``
+    with and without K3: the detections must be identical."""
+    saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     runs = {}
     try:
@@ -1027,12 +1069,11 @@ def f32_same_with_and_without_k3(make_backend, images, name_power: str,
             runs[kernel_nms] += (time.perf_counter() - t0, nms.launches)
             del b32
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = saved
+        torch.backends.cudnn.deterministic = saved
     same = all(np.array_equal(a, b) for a, b in
                zip(runs[True][:4], runs[False][:4]))
-    print(f"{label} f32 (TF32 off), one batch of {len(images)}: K3 "
+    print(f"{label} f32 (cuDNN TF32 on, matmul TF32 off), one batch of "
+          f"{len(images)}: K3 "
           f"{runs[True][4]:.4f} s ({runs[True][5]} launches), plain NMS "
           f"{runs[False][4]:.4f} s ({runs[False][5]} launches); detections "
           f"identical: {same}; detections per window "
@@ -1128,6 +1169,22 @@ def od_api_phases(name_power: str):
           f"{np.median(resize_ms):.1f} ms per batch of {DET_BATCH} (median "
           f"of 3) | {name_power}", flush=True)
 
+    # ---- the readback: batch A read after batch B is launched ----
+    with torch.inference_mode(), tf32(True, False):
+        packed_a = pack_detections(model.detect(x, anchors))
+        handle_a = readback(packed_a)
+        handle_b = backend.detect_batch_submit(images[::-1].copy())
+        got_a = read_host(handle_a)
+        want_a = packed_a.cpu().numpy()
+    check(isinstance(handle_a, tuple) and isinstance(handle_b, tuple)
+          and handle_a[0].is_pinned(), "the readback handle on the card")
+    check(np.array_equal(got_a, want_a),
+          "the event-based readback differs from .cpu()")
+    backend.read_detections(handle_b)
+    print(f"OD-API readback: a pinned copy and an event per batch; batch A "
+          f"read after batch B was launched equals A's .cpu() copy "
+          f"({got_a.shape}, float32) | {name_power}", flush=True)
+
     # ---- host resize with K3, the plain NMS, the device resize: turns ----
     others = {
         "plain NMS": ODAPIDetectorBackend(params=backend.params,
@@ -1188,6 +1245,303 @@ def od_api_phases(name_power: str):
     print_conv_trace("bf16 OD-API detector batch", backend, images, model,
                      x, anchors, name_power)
     return k3, od_launches
+
+
+# ---------------- the end-to-end pipeline (gseg-e2e) ----------------
+class HostSpans:
+    """Host seconds and calls of chosen functions, summed over threads:
+    each is wrapped in place with a timer; ``restore`` puts the originals
+    back."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.spans = {}
+        self.patched = []
+
+    def wrap(self, owner, attr: str, label) -> None:
+        """``label``: a span name, or a function of the call's arguments
+        that returns one."""
+        orig = getattr(owner, attr)
+        name_of = label if callable(label) else (lambda *a, **k: label)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                key = name_of(*args, **kwargs)
+                with self.lock:
+                    s_, n_ = self.spans.get(key, (0.0, 0))
+                    self.spans[key] = (s_ + dt, n_ + 1)
+
+        self.patched.append((owner, attr, attr in vars(owner), orig))
+        setattr(owner, attr, timed)
+
+    def take(self) -> dict:
+        with self.lock:
+            out, self.spans = self.spans, {}
+        return out
+
+    def restore(self) -> None:
+        for owner, attr, own, orig in reversed(self.patched):
+            if own:
+                setattr(owner, attr, orig)
+            else:
+                delattr(owner, attr)
+        self.patched = []
+
+
+def read_label(slide, location, level, size):
+    if level == 0:
+        return "crop reads (level 0)"
+    if tuple(size) == (DET_WINDOW_PX, DET_WINDOW_PX):
+        return "window reads (level 3)"
+    return "overlay reads (level 3)"
+
+
+def e2e_slide(path: Path) -> float:
+    """Write the e2e smoke slide with the port's synthetic writer; returns
+    the seconds it took."""
+    t0 = time.perf_counter()
+    level3 = pyramid_slide(seed=1).level3
+    base = np.repeat(np.repeat(level3, 8, axis=0), 8, axis=1)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_pyramidal_tiff(str(path), base, mpp=DET_MPP, objective_power=40.0,
+                         compression=E2E_COMPRESSION)
+    return time.perf_counter() - t0
+
+
+def log_rows(out: Path):
+    """The timing log's rows: (patient, time, detect_time)."""
+    lines = (out / "OPT_PAS_GlomusMergedList__log.csv").read_text() \
+        .splitlines()
+    check(lines[0] == "file,time,detect_time,timestamp", "timing log header")
+    return [(ln.split(",")[0].strip('"'), float(ln.split(",")[1]),
+             float(ln.split(",")[2])) for ln in lines[1:]]
+
+
+def artifacts(out: Path) -> dict:
+    """Every artifact file of a run's output directory -> its bytes, the
+    timing log without its times."""
+    files = {}
+    for p in sorted(out.rglob("*")):
+        if p.is_file() and not p.name.endswith("_log.csv"):
+            files[str(p.relative_to(out))] = p.read_bytes()
+    files["log"] = [r[0] for r in log_rows(out)]
+    return files
+
+
+def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
+    """The end-to-end pipeline through the CLI's ``build_pipeline`` at its
+    defaults, on a written pyramidal TIFF read by the port's ``open_slide``:
+    three slides pipelined and serial (byte-identical artifacts; the
+    serial run traced), the detect and segment split, ``--no_json`` and
+    ``--device_resize`` on one slide, host spans, peak memory and the K1
+    and K3 launches of the pipelined run.  Returns that run's launches and
+    times."""
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
+    version = {m: __import__(m).__version__ if found else "missing"
+               for m, found in have.items()}
+    print(f"e2e: PIL {version['PIL']}, cv2 {version['cv2']}, "
+          f"/usr/include/jpeglib.h present "
+          f"{os.path.exists('/usr/include/jpeglib.h')}; slide compression "
+          f"{E2E_COMPRESSION}; labelme JSONs written | {name_power}",
+          flush=True)
+    check(have["PIL"] and have["cv2"], "the e2e phase needs PIL (JPEG "
+          "tiles, labelme PNGs) and cv2 (contours, the overlay)")
+    root = WORK / "e2e"
+    shutil.rmtree(root, ignore_errors=True)
+    path = root / "data" / "E2E.tiff"
+    write_s = e2e_slide(path)
+    with Slide(str(path)) as s_:
+        width, height = s_.dimensions
+        print(f"e2e slide: {path.stat().st_size / 1e6:.1f} MB written in "
+              f"{write_s:.2f} s by wsi/synthetic.py ({E2E_COMPRESSION}, "
+              f"256-px tiles); level 0 {s_.dimensions}, "
+              f"{s_.level_count} levels, downsamples "
+              f"{[round(d) for d in s_.level_downsamples]}, mpp "
+              f"{s_.properties['openslide.mpp-x']}, objective "
+              f"{s_.properties['openslide.objective-power']} | {name_power}",
+              flush=True)
+    jobs = [(str(path), pid) for pid in E2E_JOBS]
+    t0 = time.perf_counter()
+    backend = ODAPIDetectorBackend(
+        consts=random_od_api_consts(E2E_DETECTOR_SEED), batch_size=DET_BATCH)
+    print(f"e2e detector: ODAPIDetectorBackend on random_od_api_consts("
+          f"{E2E_DETECTOR_SEED}), bf16, host TF1 resize, batch {DET_BATCH}; "
+          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+    args = build_parser().parse_args([
+        "--model", str(root), "--target_list", str(root / "targets.txt"),
+        "--data_dir", str(root / "data"),
+        "--segmentation_weights_dir", str(ckpt_dir)])
+    pipe = build_pipeline(args, backend)
+    ens = pipe.segmenter.ensemble
+    check(ens.engine == "packed" and ens.fuse_level3
+          and ens.config.batch_size == 32
+          and ens.config.compute_dtype == "bfloat16"
+          and pipe.segmenter.transfer == "flat"
+          and (pipe.detect_conf, pipe.merge_conf, pipe.merge_overlap)
+          == (0.2, 0.9, 0.35), "the CLI defaults")
+
+    spans = HostSpans()
+    spans.wrap(Slide, "read_region_array", read_label)
+    spans.wrap(backend, "resize_host", "TF1 resize (detector)")
+    spans.wrap(backend, "read_detections", "detection reads (wait)")
+    spans.wrap(ens, "read_maps", "class-map reads (wait)")
+    spans.wrap(fused_module, "pack_crops_flat", "crop packing")
+    spans.wrap(fused_module, "postprocess_nearest_host",
+               "full-res maps (JSON path)")
+    spans.wrap(e2e_module, "build_labelme_doc", "labelme docs (contours, "
+               "PNG)")
+    spans.wrap(FusedEndToEnd, "_write_overlay", "overlay (reads, blend, "
+               "JPG)")
+    detected, canvases = [], []
+    merge_boxes, segment_slide = pipe.merge_boxes, pipe.segmenter.segment_slide
+
+    def counting_merge(detections, *a):
+        detected.append(len(detections))
+        return merge_boxes(detections, *a)
+
+    def keeping_segment(slide, merged, **kw):
+        canvas = segment_slide(slide, merged, **kw)
+        canvases.append((merged, canvas))
+        return canvas
+
+    pipe.merge_boxes = counting_merge
+    pipe.segmenter.segment_slide = keeping_segment
+    spans.wrap(pipe, "merge_boxes", "box merge")
+
+    def run(name, pipeline, json_dir=True, n_jobs=len(jobs)):
+        out = root / name
+        FusedEndToEnd.prepare_output(str(out), "OPT_PAS")
+        results = []
+        detected.clear()
+        canvases.clear()
+        spans.take()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        esp_block_fused.launches = esp_block_padded.launches = 0
+        nms.launches = 0
+        t0 = time.perf_counter()
+        ok = pipe.run_slides(
+            jobs[:n_jobs], str(out),
+            json_dir=str(out / "json") if json_dir else None,
+            pipeline=pipeline,
+            on_result=lambda *r: results.append(r))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for pid, _, error, _ in results:
+            if error is not None:
+                raise RuntimeError(f"e2e {name}: slide {pid} failed") \
+                    from error
+        check(ok == n_jobs, f"e2e {name}: {ok} of {n_jobs} slides")
+        return {"out": out, "wall": wall,
+                "secs": [r[3] for r in results],
+                "launches": (esp_block_fused.launches,
+                             esp_block_padded.launches, nms.launches),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "spans": spans.take(), "log": log_rows(out),
+                "detected": list(detected), "canvases": list(canvases)}
+
+    def print_run(label, r):
+        split = ", ".join(f"{t:.3f} ({d:.3f} + {t - d:.3f})"
+                          for _, t, d in r["log"])
+        print(f"e2e {label}: {len(r['secs'])} slides in {r['wall']:.3f} s "
+              f"wall ({r['wall'] / len(r['secs']):.3f} s/slide); per slide "
+              f"(on_result) " + ", ".join(f"{s_:.3f}" for s_ in r["secs"])
+              + f" s; timing log time (detect + segment and emit) {split}; "
+              f"(K1, K2, K3) launches {r['launches']}; peak memory "
+              f"{r['peak_gb']:.3f} GB | {name_power}", flush=True)
+        print("  host spans (s, calls, summed over threads): " + "; ".join(
+            f"{k} {v[0]:.3f}/{v[1]}" for k, v in
+            sorted(r["spans"].items(), key=lambda kv: -kv[1][0])),
+            flush=True)
+
+    try:
+        # the earlier phases ran the detector and the packed engine at
+        # these shapes: no warm-up run
+        main_run = run("pipelined", True)
+        # the serial run is the traced one: the device works under 2% of
+        # the time, so the profiler's per-launch cost is lost in the noise
+        serial = {}
+        prof = trace(lambda: serial.update(run("serial", False)))
+        # one slide each without the JSONs: the device-side /8 gather,
+        # then the same with the windows resized on the card
+        no_json = run("no_json", False, json_dir=False, n_jobs=1)
+        pipe.backend = ODAPIDetectorBackend(params=backend.params,
+                                            num_classes=1,
+                                            batch_size=DET_BATCH,
+                                            device_resize=True)
+        device_resize = run("device_resize", False, json_dir=False,
+                            n_jobs=1)
+        pipe.backend = backend
+    finally:
+        spans.restore()
+        del pipe.merge_boxes, pipe.segmenter.segment_slide
+
+    # ---- what came out ----
+    rows = [ln.split(",") for ln in (main_run["out"] /
+            "OPT_PAS_GlomusMergedList_.csv").read_text().splitlines()]
+    merged = {pid: [r for r in rows if r[1] == pid] for pid in E2E_JOBS}
+    sizes = np.asarray([(int(r[5]) - int(r[3])) * (int(r[6]) - int(r[4]))
+                        for r in rows])
+    sides = np.asarray([(int(r[5]) - int(r[3]), int(r[6]) - int(r[4]))
+                        for r in rows])
+    n_windows = main_run["spans"]["window reads (level 3)"][1] // len(jobs)
+    print(f"e2e slides: {n_windows} windows each, detections "
+          f"{main_run['detected']}, merged boxes "
+          f"{[len(v) for v in merged.values()]}; crop sides (w, h) min "
+          f"{sides.min(0).tolist()}, median {np.median(sides, 0).tolist()}, "
+          f"max {sides.max(0).tolist()}, crop areas median "
+          f"{float(np.median(sizes)):.0f} px (random weights: the detector "
+          f"decides the boxes; none filtered or clipped) | {name_power}",
+          flush=True)
+    check(max(len(v) for v in merged.values()) >= 32,
+          "no slide has a full crop batch of 32: change the detector seed")
+    for merged_boxes, canvas in main_run["canvases"]:
+        boxes = [[int(v) for v in r[:4]] + [r[4]] for r in merged_boxes]
+        check(canvas.shape == (height // 8, width // 8), "e2e canvas shape")
+        check(int(canvas.max()) < 5, "e2e canvas classes")
+        check(outside_boxes_is_background(canvas, boxes),
+              "e2e canvas has labels outside every box")
+    want_k3 = 2 * math.ceil(n_windows / DET_BATCH) * len(E2E_JOBS)
+    want_k1 = 40 * sum(math.ceil(len(v) / 32) for v in merged.values())
+    k1_n, k2_n, k3_n = main_run["launches"]
+    check(k1_n > 0 and k3_n > 0, f"e2e launches {main_run['launches']}")
+    check((k1_n, k2_n, k3_n) == (want_k1, 0, want_k3),
+          f"e2e (K1, K2, K3) launches {main_run['launches']}, want "
+          f"{(want_k1, 0, want_k3)}")
+
+    # ---- pipelined against serial: byte-identical artifacts ----
+    a, b = artifacts(main_run["out"]), artifacts(serial["out"])
+    check(a.keys() == b.keys(), "e2e: pipelined and serial files differ")
+    differ = [k for k in a if a[k] != b[k]]
+    check(not differ, f"e2e: pipelined and serial differ in {differ[:5]}")
+    for pid, v in merged.items():
+        n_json = len([k for k in a if k.startswith(f"json/{pid}/")])
+        check(n_json == len(v), f"e2e {pid}: {n_json} JSONs for "
+                                f"{len(v)} boxes")
+    first = [ln for ln in a["OPT_PAS_GlomusMergedList_.csv"].splitlines(True)
+             if ln.split(b",")[1] == E2E_JOBS[0].encode()]
+    check(artifacts(no_json["out"])["OPT_PAS_GlomusMergedList_.csv"]
+          == b"".join(first), "e2e --no_json: other merged boxes")
+    same_px = float((no_json["canvases"][0][1]
+                     == main_run["canvases"][0][1]).mean())
+    print(f"e2e pipelined and serial: {len(a) - 1} artifact files "
+          f"(merged CSV, labelme JSONs, overlay "
+          f"JPGs) byte-identical, timing-log rows equal apart from the "
+          f"times; --no_json: merged CSV identical, canvas pixels equal to "
+          f"the JSON run's {same_px:.6f} | {name_power}", flush=True)
+    for label, r in (("pipelined (main path)", main_run),
+                     ("serial (traced)", serial),
+                     ("serial --no_json", no_json),
+                     ("serial --no_json --device_resize", device_resize)):
+        print_run(label, r)
+    print_trace(f"e2e serial run ({len(jobs)} slides, JSON path)", prof,
+                name_power)
+    return {"launches": main_run["launches"], "wall": main_run["wall"],
+            "serial_wall": serial["wall"]}
 
 
 def main() -> int:
@@ -1396,6 +1750,8 @@ def main() -> int:
     phase_done("ResNet detector")
     od_k3, od_launches = od_api_phases(name_power)
     phase_done("OD-API detector")
+    e2e = e2e_phase(WORK / "folds", name_power)
+    phase_done("e2e")
     print("chip_smoke phases (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f} | {name_power}", flush=True)
@@ -1435,13 +1791,16 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         esp_entry("esp_block_fused", "esp_block.cu",
-                  "esp_block.py:72 (_esp_kernel)", k1, launches),
+                  "esp_block.py:72 (_esp_kernel)", k1, launches,
+                  e2e_launches=e2e["launches"][0]),
         esp_entry("esp_block_padded", "esp_block_dma.cu",
                   "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches,
-                  composed_ms=k2_composed_ms),
+                  composed_ms=k2_composed_ms,
+                  e2e_launches=e2e["launches"][1]),
         nms_entry("ResNet-50-C4 detector", k3, "rpn seeded", det_launches),
-        nms_entry("OD-API frozen-graph detector", od_k3,
-                  "od_api rpn proposals", od_launches),
+        dict(nms_entry("OD-API frozen-graph detector", od_k3,
+                       "od_api rpn proposals", od_launches),
+             e2e_launches=e2e["launches"][2]),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

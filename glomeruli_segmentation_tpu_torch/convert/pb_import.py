@@ -316,6 +316,27 @@ def load_od_api_detector_params(path: str):
     return assemble_od_api_params(load_frozen_graph_constants(path))
 
 
+def load_od_api_checkpoint(path: str):
+    """Read an ``od_api_detector.ckpt.pth`` (``{"od_api_params": tree,
+    "num_classes": int, "od_config": ODAPIConfig fields}``, the legacy torch
+    pickle the JAX package's OD-API fine-tuner writes) -> (params as a numpy
+    tree, num_classes, config dict).  Counterpart of the JAX package's
+    ``train/od_api_finetune.py:load_od_api_checkpoint``.  The file is
+    unpickled in full (``weights_only=False``): read only checkpoints this
+    project wrote."""
+    import torch
+
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+
+    def numpy_leaves(tree):
+        if isinstance(tree, dict):
+            return {k: numpy_leaves(v) for k, v in tree.items()}
+        return tree.numpy() if torch.is_tensor(tree) else np.asarray(tree)
+
+    return (numpy_leaves(blob["od_api_params"]), int(blob["num_classes"]),
+            dict(blob.get("od_config", {})))
+
+
 # ---------------------------------------------------------------------------
 # random weights at the published widths
 # ---------------------------------------------------------------------------

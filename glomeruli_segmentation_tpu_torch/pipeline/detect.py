@@ -26,7 +26,7 @@ from typing import Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import read_host, readback, resolve_device, tf32
 from ..convert.pb_import import (assemble_od_api_params,
                                  load_od_api_detector_params)
 from ..models.faster_rcnn import FasterRCNN, FasterRCNNConfig, build_anchors
@@ -87,11 +87,24 @@ def unpack_detections(packed: np.ndarray):
 
 
 class _PackedBackend(DetectorBackend):
-    """A device backend whose ``detect_batch_submit`` returns the packed
-    result of :func:`pack_detections`, read back with one copy."""
+    """A device backend whose ``detect_batch_submit`` returns a
+    :func:`..readback` handle on the packed result of
+    :func:`pack_detections`, read back with one copy.
 
-    def read_detections(self, handle: torch.Tensor):
-        return unpack_detections(handle.cpu().numpy())
+    The forward runs with the TF32 switches it has when nothing else sets
+    them (torch's defaults): cuDNN TF32 on, matmul TF32 off.  It sets them
+    itself under the port's TF32 lock, so a segmenter dispatching from
+    another thread with other settings cannot change its detections."""
+
+    CUDNN_TF32, MATMUL_TF32 = True, False
+
+    def _launch(self, model, x: torch.Tensor, anchors: torch.Tensor):
+        with tf32(self.CUDNN_TF32, self.MATMUL_TF32):
+            out = pack_detections(model.detect(x, anchors))
+        return readback(out)
+
+    def read_detections(self, handle):
+        return unpack_detections(read_host(handle))
 
     def detect_batch(self, images: np.ndarray):
         return self.read_detections(self.detect_batch_submit(images))
@@ -128,16 +141,16 @@ class TorchDetectorBackend(_PackedBackend):
         return self._geometry[key]
 
     @torch.inference_mode()
-    def detect_batch_submit(self, images: np.ndarray) -> torch.Tensor:
-        """Upload and launch; returns the packed device result unread.  On a
-        card the windows go through pinned memory without waiting for the
-        device, so the host can stage the next batch meanwhile."""
+    def detect_batch_submit(self, images: np.ndarray):
+        """Upload and launch; returns the packed result's readback handle.
+        On a card the windows go through pinned memory without waiting for
+        the device, so the host can stage the next batch meanwhile."""
         model, anchors = self._model_for(images.shape[1], images.shape[2])
         x = torch.from_numpy(np.ascontiguousarray(images))
         if self.device.type == "cuda":
             x = x.pin_memory()
         x = x.to(self.device, non_blocking=True)
-        return pack_detections(model.detect(x, anchors))
+        return self._launch(model, x, anchors)
 
 
 class ODAPIDetectorBackend(_PackedBackend):
@@ -219,10 +232,10 @@ class ODAPIDetectorBackend(_PackedBackend):
             for im in images]))
 
     @torch.inference_mode()
-    def detect_batch_submit(self, images: np.ndarray) -> torch.Tensor:
+    def detect_batch_submit(self, images: np.ndarray):
         """Resize (on the host by default), upload through pinned memory
-        without waiting for the device, launch; returns the packed device
-        result unread."""
+        without waiting for the device, launch; returns the packed result's
+        readback handle."""
         h, w = images.shape[1:3]
         (rh, rw), model, anchors = self._model_for(h, w)
         resize = (rh, rw) != (h, w)
@@ -237,7 +250,7 @@ class ODAPIDetectorBackend(_PackedBackend):
             op = (resize_bilinear_tf1 if self.compat_tf1_resize
                   else resize_bilinear)
             x = op(x, rh, rw)
-        return pack_detections(model.detect(x, anchors))
+        return self._launch(model, x, anchors)
 
 
 def threshold_boxes(boxes: np.ndarray, scores: np.ndarray, window_x: int,

@@ -20,7 +20,6 @@ runs on the device, so only (B, oh, ow) bytes come back.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import queue
@@ -30,7 +29,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import read_host, readback, resolve_device, tf32
 from ..convert.espnet_import import load_espnet_state_dict
 from ..models.espnet_fused import FusedESPNet
 from ..models.espnet_packed import PackedEnsembleESPNet
@@ -88,20 +87,6 @@ def unpack_tables(buf: torch.Tensor, shapes) -> List[torch.Tensor]:
     ``buf``, no copy."""
     sizes = [int(np.prod(s)) for s in shapes]
     return [part.view(s) for part, s in zip(buf.split(sizes), shapes)]
-
-
-@contextlib.contextmanager
-def _tf32(allow: bool):
-    """Set both TF32 switches for the duration of a forward, then restore."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allow
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class EnsembleSegmenter:
@@ -192,13 +177,13 @@ class EnsembleSegmenter:
         """(B, in_h, in_w, 3) float32 BGR -> (B, in_h, in_w) uint8."""
         if self._packed is not None:
             # normalises per fold itself, from the float32 crops
-            with _tf32(self.allow_tf32):
+            with tf32(self.allow_tf32, self.allow_tf32):
                 return self._packed(resized)
         acc_f32 = self.accum_dtype == torch.float32
         # the bf16 path reads the resized batch once per fold: keep it bf16
         resized = resized.to(self.compute_dtype)
         acc = None
-        with _tf32(self.allow_tf32):
+        with tf32(self.allow_tf32, self.allow_tf32):
             for net, mean, std in zip(self.nets, self.mean, self.std):
                 x = ((resized - mean) / std / 255.0).to(self.compute_dtype)
                 logits = net(x.permute(0, 3, 1, 2))
@@ -217,38 +202,22 @@ class EnsembleSegmenter:
         (in_height, in_width) map."""
         if self._packed is not None:
             resized = self._resize_batch(padded, heights, widths)
-            with _tf32(self.allow_tf32):
+            with tf32(self.allow_tf32, self.allow_tf32):
                 return self._packed.gathered_argmax(resized, ys, xs)
         maps = self._forward(padded, heights, widths)
         batch = torch.arange(maps.shape[0], device=maps.device)
         return maps[batch[:, None, None], ys.long()[:, :, None],
                     xs.long()[:, None, :]]
 
-    def _readback(self, out: torch.Tensor):
-        """A ``submit_batch*`` handle.  On a card the copy of ``out`` into
-        pinned host memory is enqueued right behind the batch's kernels,
-        with an event after it, so reading batch N waits for batch N only,
-        not for batch N+1 launched before the read."""
-        if out.device.type != "cuda":
-            return out
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
-
     def read_maps(self, handle) -> np.ndarray:
-        """A ``submit_batch*`` handle as host uint8 class maps."""
-        if isinstance(handle, tuple):
-            host, done = handle
-            done.synchronize()
-            return host.numpy()
-        return handle.cpu().numpy()
+        """A ``submit_batch*`` handle (:func:`..readback`) as host uint8
+        class maps."""
+        return read_host(handle)
 
     def submit_batch_padded(self, padded: np.ndarray, heights: np.ndarray,
                             widths: np.ndarray):
         """Async: (B, maxH, maxW, 3) uint8 BGR -> (B, in_h, in_w)."""
-        return self._readback(self._forward(*self._upload(padded, heights,
+        return readback(self._forward(*self._upload(padded, heights,
                                                           widths)))
 
     def segment_batch_padded(self, padded: np.ndarray, heights: np.ndarray,
@@ -260,7 +229,7 @@ class EnsembleSegmenter:
                             widths: np.ndarray, ys: np.ndarray,
                             xs: np.ndarray):
         """Async: transfer + launch, return the result unread."""
-        return self._readback(self._forward_gather(
+        return readback(self._forward_gather(
             *self._upload(padded, heights, widths, ys, xs)))
 
     def segment_batch_gather(self, padded: np.ndarray, heights: np.ndarray,
@@ -276,7 +245,7 @@ class EnsembleSegmenter:
         """Async flat-transfer forward (full-resolution class maps)."""
         flat, offs, hs, ws = self._upload(flat, offsets, heights, widths)
         padded = unflatten_crops(flat, offs, hs, ws, max_h, max_w)
-        return self._readback(self._forward(padded, hs, ws))
+        return readback(self._forward(padded, hs, ws))
 
     def submit_batch_gather_flat(self, flat: np.ndarray, offsets: np.ndarray,
                                  heights: np.ndarray, widths: np.ndarray,
@@ -286,7 +255,7 @@ class EnsembleSegmenter:
         flat, offs, hs, ws, ys, xs = self._upload(flat, offsets, heights,
                                                   widths, ys, xs)
         padded = unflatten_crops(flat, offs, hs, ws, max_h, max_w)
-        return self._readback(self._forward_gather(padded, hs, ws, ys, xs))
+        return readback(self._forward_gather(padded, hs, ws, ys, xs))
 
 
 class FusedSlideSegmenter:
@@ -421,7 +390,7 @@ class FusedSlideSegmenter:
 
         # batch N+1 is launched before batch N is read back, so its
         # transfer and launch overlap the device's work on batch N (and the
-        # read of batch N waits for batch N only, see _readback)
+        # read of batch N waits for batch N only, see readback)
         pending = None
         while True:
             item = q.get()

@@ -25,6 +25,7 @@ from glomeruli_segmentation_tpu_torch.convert.detector_import import (
 from glomeruli_segmentation_tpu_torch.models.faster_rcnn import (
     FasterRCNNConfig,
 )
+import glomeruli_segmentation_tpu_torch as port
 from glomeruli_segmentation_tpu_torch import wsi as torch_wsi
 from glomeruli_segmentation_tpu_torch.pipeline import detect as torch_detect
 from glomeruli_segmentation_tpu_torch.utils import glomus_handler
@@ -223,3 +224,79 @@ def test_backend_defaults_to_cuda():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         torch_detect.TorchDetectorBackend({}, FasterRCNNConfig(**DETECT))
+
+
+def test_readback_handle_on_the_cpu_is_the_tensor(detector_setup):
+    """On the CPU a submitted batch's handle stays the packed tensor, and
+    reading it gives the detections a plain ``.cpu()`` copy gives (on a
+    card the handle is a pinned copy and an event: chip_smoke.py holds
+    that one to ``.cpu()``)."""
+    variables, images = detector_setup
+    backend = _port_backend(variables, batch_size=2)
+    handle = backend.detect_batch_submit(images)
+    assert torch.is_tensor(handle) and handle.device.type == "cpu"
+    want = torch_detect.unpack_detections(handle.cpu().numpy())
+    for a, b in zip(backend.read_detections(handle), want):
+        np.testing.assert_array_equal(a, b)
+    t = torch.arange(6.0).reshape(2, 3)
+    assert port.readback(t) is t
+    np.testing.assert_array_equal(port.read_host(port.readback(t)),
+                                  t.numpy())
+
+
+def test_forward_fixes_its_own_tf32_switches(detector_setup, monkeypatch):
+    """The detector's forward runs with cuDNN TF32 on and matmul TF32 off
+    whatever the process has set, and restores the process's settings."""
+    variables, images = detector_setup
+    backend = _port_backend(variables, batch_size=2)
+    seen = []
+    model, _ = backend._model_for(128, 128)
+    detect = model.detect
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return detect(*a, **k)
+
+    monkeypatch.setattr(model, "detect", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    backend.detect_batch(images)
+    assert seen == [(True, False)]
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == (False, True)
+
+
+def test_tf32_switches_are_held_per_forward_across_threads():
+    """Two threads' forwards: while one holds its TF32 settings the other
+    waits, so neither dispatches an op under the other's settings."""
+    import threading
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    inside, release, log = threading.Event(), threading.Event(), []
+
+    def first():
+        with port.tf32(False, True):
+            inside.set()
+            release.wait(10)
+            log.append(("first", torch.backends.cudnn.allow_tf32,
+                        torch.backends.cuda.matmul.allow_tf32))
+
+    def second():
+        inside.wait(10)
+        with port.tf32(True, False):
+            log.append(("second", torch.backends.cudnn.allow_tf32,
+                        torch.backends.cuda.matmul.allow_tf32))
+
+    threads = [threading.Thread(target=f) for f in (first, second)]
+    for th in threads:
+        th.start()
+    inside.wait(10)
+    release.set()
+    for th in threads:
+        th.join(10)
+        assert not th.is_alive()
+    assert log == [("first", False, True), ("second", True, False)]
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == saved

@@ -30,7 +30,10 @@ def test_port_and_chip_smoke_import_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     count = int(proc.stdout.split()[0])
-    # the package, its subpackages, the detector slice's modules and the
+    # the package, its subpackages, the detector slice's modules, the
     # frozen-graph detector's (convert/pb_import, ops/resize,
-    # models/inception_v2, models/od_api_frcnn)
-    assert count >= 27, proc.stdout
+    # models/inception_v2, models/od_api_frcnn) and the end-to-end slice's
+    # (palette, eval, eval/boundary, cli, cli/detect, cli/e2e, pipeline/
+    # e2e, merge, segment, seg_data, utils/labelme_io, utils/target_list,
+    # wsi/tiff_reader, wsi/synthetic)
+    assert count >= 41, proc.stdout
