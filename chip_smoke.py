@@ -58,15 +58,35 @@
    detector on ``random_od_api_consts(E2E_DETECTOR_SEED)`` with the host
    TF1 resize, the packed ensemble at crop batch 32, bf16) over a
    35328x26496 pyramidal TIFF written by the port's ``wsi/synthetic.py``
-   and read by its ``open_slide``: three jobs pipelined and serial (merged
+   and read by its ``open_slide``: two jobs pipelined and serial (merged
    CSV, labelme JSONs and overlays byte-identical, canvases background
    outside the boxes, at least one full crop batch), with the K1 and K3
    counts set to 0 before the pipelined run and read after it, the serial
    run traced; then one slide with ``--no_json``, and one with
    ``--no_json --device_resize``, with host spans (reads, resize,
    packing, JSONs, overlay) per run;
-9. prints one JSON line of kernel results (K3 once per detector, each with
-   its launches in the e2e run) and, last, one JSON status line.
+9. writes the e2e detector's parameters as ``od_api_detector.ckpt.pth``
+   into a model directory, so that the commands below load it through
+   ``cli/detect.load_backend``, and runs the staged detect stage on the
+   e2e slide: ``gseg-detect`` (``cli/detect.main`` at the e2e operating
+   point; K3 launches 2 a window batch, the detections the e2e phase's,
+   ``--resume`` leaving the CSV and the timing log byte-identical) and
+   ``gseg-merge`` (``cli/merge.main`` at 0.9 / 0.35: the e2e phase's
+   merged boxes);
+10. runs ``gseg-warmup`` (``python -m ...cli.warmup``, flat transfer, the
+    1104-px window) in a fresh process with the kernels already built: exit
+    code 0, its ``warmed:`` line, its wall time and line times;
+11. runs ``gseg-serve`` (``cli/serve.main``) in this process with
+    ``--no_json`` at the CLI's other defaults over four tickets (two
+    patients on the e2e slide, a second ticket for the first, a missing
+    slide), with the K1, K2 and K3 counts set to 0 before and read after:
+    the spool's ``done/``, ``failed/`` and ``active/``, the log rows, the
+    merged rows and overlay byte-identical to the e2e ``--no_json`` run's,
+    the launches, per-ticket times, the server's start, host RSS and
+    device memory;
+12. prints one JSON line of kernel results (K3 once per detector, each with
+    its launches in the e2e run and in the server run) and, last, one JSON
+    status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
@@ -89,9 +109,13 @@ import numpy as np
 import torch
 
 from glomeruli_segmentation_tpu_torch import read_host, readback, tf32
+from glomeruli_segmentation_tpu_torch.cli import detect as detect_cli
+from glomeruli_segmentation_tpu_torch.cli import merge as merge_cli
+from glomeruli_segmentation_tpu_torch.cli import serve as serve_cli
 from glomeruli_segmentation_tpu_torch.cli.e2e import (
     build_parser,
     build_pipeline,
+    resolve_slide_pipeline,
 )
 from glomeruli_segmentation_tpu_torch.convert.detector_import import (
     random_detector_state,
@@ -129,6 +153,7 @@ from glomeruli_segmentation_tpu_torch.ops.esp_block import (
 from glomeruli_segmentation_tpu_torch.ops.nms import nms, nms_plain, premask
 from glomeruli_segmentation_tpu_torch.pipeline import e2e as e2e_module
 from glomeruli_segmentation_tpu_torch.pipeline import fused as fused_module
+from glomeruli_segmentation_tpu_torch.pipeline import serve as serve_module
 from glomeruli_segmentation_tpu_torch.pipeline.detect import (
     GlomusDetector,
     ODAPIDetectorBackend,
@@ -196,11 +221,12 @@ DET_LEVEL3_HW = (3312, 4416)
 # and its NMS problems per window batch of 8 are (P, N, k, IoU)
 OD_RESIZED = (600, 600)
 OD_K3_SHAPES = {"rpn": (8, 6000, 300, 0.7), "second": (8, 300, 100, 0.6)}
-# the end-to-end phase: three jobs (patient ids) over one written slide, so
+# the end-to-end phase: two jobs (patient ids) over one written slide, so
 # that run_slides overlaps slides; level 0 is the detector stub's level 3
 # in 8x8 blocks (35328 x 26496 at 0.2265 um/px, 40x), so the scan reads the
-# same 20 windows at level 3
-E2E_JOBS = ("E2E-1", "E2E-2", "E2E-3")
+# same 20 windows at level 3.  Two, not three: the staged-detect, warm-up
+# and server phases after it take the third slide's time
+E2E_JOBS = ("E2E-1", "E2E-2")
 # JPEG q90 tiles, the synthetic writer's default: the card's machine has
 # PIL (12.2.0 when this was set), which the reader decodes them with
 E2E_COMPRESSION = "jpeg"
@@ -1335,7 +1361,7 @@ def artifacts(out: Path) -> dict:
 def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
     """The end-to-end pipeline through the CLI's ``build_pipeline`` at its
     defaults, on a written pyramidal TIFF read by the port's ``open_slide``:
-    three slides pipelined and serial (byte-identical artifacts; the
+    two slides pipelined and serial (byte-identical artifacts; the
     serial run traced), the detect and segment split, ``--no_json`` and
     ``--device_resize`` on one slide, host spans, peak memory and the K1
     and K3 launches of the pipelined run.  Returns that run's launches and
@@ -1541,7 +1567,244 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
     print_trace(f"e2e serial run ({len(jobs)} slides, JSON path)", prof,
                 name_power)
     return {"launches": main_run["launches"], "wall": main_run["wall"],
-            "serial_wall": serial["wall"]}
+            "serial_wall": serial["wall"], "slide": path,
+            "params": backend.params, "n_windows": n_windows,
+            "detected": main_run["detected"][0],
+            "merged_csv": main_run["out"] / "OPT_PAS_GlomusMergedList_.csv",
+            "no_json_out": no_json["out"]}
+
+
+# ---------------- the commands around the e2e path ----------------
+def write_model_dir(params, folder: Path) -> Path:
+    """The e2e detector's parameters as a model directory that
+    ``cli/detect.load_backend`` reads (``od_api_detector.ckpt.pth``)."""
+    folder.mkdir(parents=True, exist_ok=True)
+    torch.save({"od_api_params": params, "num_classes": 1, "od_config": {}},
+               folder / "od_api_detector.ckpt.pth")
+    return folder
+
+
+def merged_boxes(rows) -> list:
+    """Merged-CSV rows (strings) -> their (x1, y1, x2, y2, score)."""
+    return [[float(v) for v in r.split(",")[3:8]] for r in rows]
+
+
+def staged_detect_phase(e2e: dict, model_dir: Path, name_power: str) -> dict:
+    """``gseg-detect`` then ``gseg-merge`` (``cli/detect.main``,
+    ``cli/merge.main``) on the e2e slide at the e2e operating point: the K3
+    launches of the scan, the detections and the merged boxes against the
+    e2e phase's, and ``--resume`` leaving both outputs byte-identical."""
+    root = WORK / "staged"
+    shutil.rmtree(root, ignore_errors=True)
+    slide_dir = root / "data" / "02_PAS" / E2E_JOBS[0]
+    slide_dir.mkdir(parents=True)
+    (slide_dir / e2e["slide"].name).symlink_to(e2e["slide"])
+    targets = root / "targets.txt"
+    targets.write_text(f"{E2E_JOBS[0]}/{e2e['slide'].name}\n")
+    out = root / "out"
+    argv = ["--model", str(model_dir), "--target_list", str(targets),
+            "--data_dir", str(root / "data"), "--staining", "OPT_PAS",
+            "--output_dir", str(out), "--window_size", str(DET_WINDOW_UM),
+            "--overlap_ratio", str(DET_OVERLAP), "--conf_threshold", "0.2"]
+    csv_path, log_path = (out / "OPT_PAS_GlomusList.csv",
+                          out / "OPT_PAS_GlomusList_log.csv")
+    torch.cuda.synchronize()
+    nms.launches = 0
+    t0 = time.perf_counter()
+    detect_cli.main(argv)
+    wall = time.perf_counter() - t0
+    k3 = nms.launches
+    want_k3 = 2 * math.ceil(e2e["n_windows"] / DET_BATCH)
+    check(k3 == want_k3, f"staged detect: K3 launched {k3} times, want "
+                         f"{want_k3}")
+    rows = csv_path.read_text().splitlines()
+    check(len(rows) == e2e["detected"], f"staged detect: {len(rows)} "
+          f"detections, the e2e phase {e2e['detected']}")
+    scan_s = float(log_path.read_text().splitlines()[1].split(",")[1])
+    before = csv_path.read_bytes(), log_path.read_bytes()
+    detect_cli.main(argv + ["--resume"])
+    check((csv_path.read_bytes(), log_path.read_bytes()) == before,
+          "staged detect --resume changed the CSV or the timing log")
+    merge_cli.main(["--staining", "OPT_PAS", "--target_list", str(targets),
+                    "--detected_list", str(csv_path),
+                    "--output_dir", str(root / "merged"),
+                    "--conf_threshold", "0.9", "--data_dir",
+                    str(root / "data"), "--overlap_threshold", "0.35"])
+    staged = merged_boxes((root / "merged" / "OPT_PAS_GlomusMergedList_.csv")
+                          .read_text().splitlines())
+    fused = merged_boxes([r for r in e2e["merged_csv"].read_text()
+                          .splitlines() if r.split(",")[1] == E2E_JOBS[0]])
+    check(len(staged) == len(fused) > 0, f"staged merge: {len(staged)} "
+          f"boxes, the e2e phase {len(fused)}")
+    check(np.allclose(sorted(staged), sorted(fused), rtol=1e-6, atol=0),
+          "staged merge: other boxes than the e2e phase's")
+    print(f"staged detect (gseg-detect, then gseg-merge 0.9 / 0.35): "
+          f"{e2e['n_windows']} windows, K3 launches {k3}, {len(rows)} "
+          f"detections and {len(staged)} merged boxes, equal to the e2e "
+          f"phase's; --resume skipped the slide, CSV and timing log "
+          f"byte-identical; scan {scan_s:.3f} s/slide (timing log), main "
+          f"{wall:.3f} s with the detector's load | {name_power}",
+          flush=True)
+    return {"k3": k3, "scan_s": scan_s, "wall": wall}
+
+
+def warmup_phase(ckpt_dir: Path, model_dir: Path, name_power: str) -> dict:
+    """``gseg-warmup`` in a fresh process, the kernels already built: its
+    exit code, its ``warmed:`` line, its wall time and when each of its
+    lines came, beside what the build took this run."""
+    cmd = [sys.executable, "-m", "glomeruli_segmentation_tpu_torch.cli.warmup",
+           "--segmentation_weights_dir", str(ckpt_dir), "--model",
+           str(model_dir), "--window_sizes", str(DET_WINDOW_PX),
+           "--transfer", "flat"]
+    t0 = time.perf_counter()
+    lines = []
+    with subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True) as proc:
+        err = []
+        reader = threading.Thread(target=lambda: err.extend(proc.stderr))
+        reader.start()
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        proc.wait(timeout=600)
+        reader.join()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"gseg-warmup exited {proc.returncode}: "
+          + "".join(err)[-3000:])
+    warmed = [text for _, text in lines if text.startswith("warmed:")]
+    want = ("warmed: " + ", ".join(f"ensemble@512:flat{k}/8"
+                                   for k in (5, 6, 7, 8, 9))
+            + f", detector@{DET_WINDOW_PX}")
+    check(warmed == [want], f"gseg-warmup printed {warmed}, want {want}")
+    nvcc_s = {name: sec for name, (sec, _) in _build.build_log.items()}
+    print(f"gseg-warmup (fresh process, kernels built): exit 0, {wall:.2f} s "
+          f"wall (interpreter and CUDA start, 5-fold ensemble and detector "
+          f"load, 10 ensemble forwards at batch 32 and 1 detector batch); "
+          f"lines at " + "; ".join(f"{t:.2f} s {text[:60]!r}"
+                                   for t, text in lines)
+          + f"; this run's nvcc build, which a warm-up saves a fresh "
+          f"server: " + ", ".join(f"{k} {v:.2f} s" for k, v in nvcc_s.items())
+          + f" | {name_power}", flush=True)
+    return {"wall": wall, "nvcc_s": nvcc_s}
+
+
+def serve_phase(e2e: dict, ckpt_dir: Path, model_dir: Path,
+                name_power: str) -> dict:
+    """``gseg-serve`` (``cli/serve.main``) in this process at the CLI's
+    defaults with ``--no_json``: four tickets (two patients, a second
+    ticket for the first, a missing slide) through pipelined waves, with
+    the K1, K2 and K3 counts set to 0 before and read after.  Checks the
+    spool, the log rows, the artifacts against the e2e phase's
+    ``--no_json`` run and the launches."""
+    root = WORK / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    spool, out = root / "spool", root / "out"
+    spool.mkdir(parents=True)
+    tickets = [("t1.json", e2e["slide"], E2E_JOBS[0]),
+               ("t2.json", e2e["slide"], E2E_JOBS[1]),
+               ("t3.json", e2e["slide"], E2E_JOBS[0]),
+               ("t4.json", root / "missing.tiff", "E2E-9")]
+    written = {}
+    base = time.time()
+    for i, (name, slide_path, pid) in enumerate(tickets):
+        (spool / name).write_text(json.dumps(
+            {"slide_path": str(slide_path), "patient_id": pid}))
+        os.utime(spool / name, (base + i, base + i))
+        written[name] = time.time()
+    argv = ["--model", str(model_dir), "--segmentation_weights_dir",
+            str(ckpt_dir), "--spool_dir", str(spool), "--output_dir",
+            str(out), "--no_json", "--max_slides", "4",
+            "--poll_interval", "0.2"]
+    check(resolve_slide_pipeline(serve_cli.build_parser()
+                                           .parse_args(argv)),
+          "the server's --slide_pipeline auto resolved to serial")
+    emitted, served_from = {}, []
+    emit, serve = serve_module.SlideServer._emit, \
+        serve_module.SlideServer.serve
+
+    def timed_emit(self, row):
+        emitted[row["ticket"]] = time.time()
+        emit(self, row)
+
+    def timed_serve(self, *a, **kw):
+        served_from.append(time.time())
+        return serve(self, *a, **kw)
+
+    serve_module.SlideServer._emit = timed_emit
+    serve_module.SlideServer.serve = timed_serve
+    torch.cuda.synchronize()
+    # the allocator's cache of the earlier phases would count as reserved
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    esp_block_fused.launches = esp_block_padded.launches = 0
+    nms.launches = 0
+    t0 = time.time()
+    try:
+        serve_cli.main(argv)
+    finally:
+        serve_module.SlideServer._emit = emit
+        serve_module.SlideServer.serve = serve
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = (esp_block_fused.launches, esp_block_padded.launches,
+                nms.launches)
+
+    rows = [json.loads(ln) for ln in
+            (out / "serve_log.jsonl").read_text().splitlines()]
+    for r in rows:
+        check(not (r["status"] == "failed" and r["ticket"] != "t4.json"),
+              f"serve: good ticket {r['ticket']} failed: {r.get('error')}")
+    listing = {d: sorted(os.listdir(spool / d))
+               for d in ("active", "done", "failed")}
+    check(listing == {"active": [], "done": ["t1.json", "t2.json",
+                                             "t3.json"],
+                      "failed": ["t4.json"]}, f"serve: spool {listing}")
+    check("error" in json.loads((spool / "failed" / "t4.json").read_text()),
+          "serve: the failed ticket has no error field")
+    check([(r["ticket"], r["status"]) for r in rows]
+          == [("t1.json", "done"), ("t2.json", "done"),
+              ("t4.json", "failed"), ("t3.json", "skipped_already_done")],
+          f"serve: log rows {[(r['ticket'], r['status']) for r in rows]}")
+
+    csv_rows = (out / "OPT_PAS_GlomusMergedList_.csv").read_text() \
+        .splitlines(True)
+    first = [r for r in csv_rows if r.split(",")[1] == E2E_JOBS[0]]
+    second = [r for r in csv_rows if r.split(",")[1] == E2E_JOBS[1]]
+    want_csv = (e2e["no_json_out"] / "OPT_PAS_GlomusMergedList_.csv") \
+        .read_bytes()
+    check("".join(first).encode() == want_csv,
+          "serve: E2E-1's merged rows differ from the e2e --no_json run's")
+    check([r.replace(f",{E2E_JOBS[1]},", f",{E2E_JOBS[0]},", 1)
+           for r in second] == first,
+          "serve: E2E-2's rows differ from E2E-1's beyond the patient")
+    check(len(first) + len(second) == len(csv_rows), "serve: other rows")
+    overlay = f"{E2E_JOBS[0]}_pred.jpg"
+    check((out / overlay).read_bytes()
+          == (e2e["no_json_out"] / overlay).read_bytes(),
+          f"serve: {overlay} differs from the e2e --no_json run's")
+    want = (40 * math.ceil(len(first) / 32) * 2, 0,
+            2 * 2 * math.ceil(e2e["n_windows"] / DET_BATCH))
+    check(launches == want, f"serve (K1, K2, K3) launches {launches}, want "
+                            f"{want}")
+    first_done = min(emitted[r["ticket"]] for r in rows
+                     if r["status"] == "done")
+    print(f"gseg-serve (--no_json, the CLI's other defaults: pipelined "
+          f"waves of 4, packed engine batch 32, bf16, OD-API host TF1 "
+          f"resize): 4 tickets in {wall:.3f} s; server start (main to its "
+          f"first spool scan, models loaded) {served_from[0] - t0:.3f} s; "
+          f"main to the first done row {first_done - t0:.3f} s; per ticket "
+          f"(sec; ticket write to its log row) "
+          + ", ".join(f"{r['ticket']} {r['status']} {r.get('sec', '-')}; "
+                      f"{emitted[r['ticket']] - written[r['ticket']]:.3f}"
+                      for r in rows)
+          + f"; (K1, K2, K3) launches {launches}; artifacts of {E2E_JOBS[0]}"
+          f" byte-identical to the e2e --no_json run's; host RSS "
+          f"{serve_module._rss_kb() / 1e6:.3f} GB; device memory after the "
+          f"run: allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB; "
+          f"during it: max allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, max reserved "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.3f} GB | {name_power}",
+          flush=True)
+    return {"launches": launches, "wall": wall}
 
 
 def main() -> int:
@@ -1752,6 +2015,13 @@ def main() -> int:
     phase_done("OD-API detector")
     e2e = e2e_phase(WORK / "folds", name_power)
     phase_done("e2e")
+    model_dir = write_model_dir(e2e["params"], WORK / "model")
+    staged_detect_phase(e2e, model_dir, name_power)
+    phase_done("staged detect")
+    warmup_phase(WORK / "folds", model_dir, name_power)
+    phase_done("warm-up")
+    served = serve_phase(e2e, WORK / "folds", model_dir, name_power)
+    phase_done("serve")
     print("chip_smoke phases (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f} | {name_power}", flush=True)
@@ -1792,15 +2062,18 @@ def main() -> int:
     print(json.dumps({"kernels": [
         esp_entry("esp_block_fused", "esp_block.cu",
                   "esp_block.py:72 (_esp_kernel)", k1, launches,
-                  e2e_launches=e2e["launches"][0]),
+                  e2e_launches=e2e["launches"][0],
+                  serve_launches=served["launches"][0]),
         esp_entry("esp_block_padded", "esp_block_dma.cu",
                   "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches,
                   composed_ms=k2_composed_ms,
-                  e2e_launches=e2e["launches"][1]),
+                  e2e_launches=e2e["launches"][1],
+                  serve_launches=served["launches"][1]),
         nms_entry("ResNet-50-C4 detector", k3, "rpn seeded", det_launches),
         dict(nms_entry("OD-API frozen-graph detector", od_k3,
                        "od_api rpn proposals", od_launches),
-             e2e_launches=e2e["launches"][2]),
+             e2e_launches=e2e["launches"][2],
+             serve_launches=served["launches"][2]),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

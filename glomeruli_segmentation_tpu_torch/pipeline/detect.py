@@ -10,9 +10,15 @@ geometry, results packed on the device and read back once per batch.
 :class:`ODAPIDetectorBackend` runs the reference's own detector, the OD-API
 frozen graph (:mod:`..models.od_api_frcnn`), the same way.
 
-Not ported yet: ``split_all``/``split`` (target list, slide files, the
-timing log and ``resume``), the PNG path and the data-parallel mesh.
-:meth:`GlomusDetector.scan_slide` takes an open slide object.
+:meth:`GlomusDetector.split_all` is the ``gseg-detect`` loop: per target
+list entry it finds the slide (or PNG) in ``<data_dir>/<staining dir>/
+<specimen>/``, scans it and appends the CSV rows and a ``file,time``
+timing-log row; with ``resume`` it skips the slides the timing log already
+holds and appends.  A PNG is scanned at its own pixels with the slide
+metadata of its target-list line (:meth:`GlomusDetector.
+scan_region_from_image`).  :meth:`GlomusDetector.scan_slide` scans one open
+slide; the end-to-end pipeline calls it directly.  The data-parallel
+window mesh is not ported.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import math
 import os
 import queue
 import threading
+import time
 from typing import Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -36,8 +43,12 @@ from ..models.od_api_frcnn import build_anchors as build_od_api_anchors
 from ..ops.resize import (resize_bilinear, resize_bilinear_tf1,
                           resize_bilinear_tf1_np)
 from ..utils.glomus_handler import GlomusHandler
+from ..utils.target_list import read_target_list
 from ..wsi import (PROPERTY_NAME_MPP_X, PROPERTY_NAME_MPP_Y,
-                   PROPERTY_NAME_OBJECTIVE_POWER)
+                   PROPERTY_NAME_OBJECTIVE_POWER, open_slide)
+
+NDPI_EXT = [".ndpi", ".tiff", ".tif", ".svs"]
+PNG_EXT = [".PNG", ".png"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -273,7 +284,8 @@ class GlomusDetector(GlomusHandler):
     def __init__(self, data_category: str, target_list: str, data_dir: str,
                  output_dir: str, output_file_ext: str,
                  window_size: Optional[int], overlap_ratio: Optional[float],
-                 conf_threshold: float, batch_size: int = 8):
+                 conf_threshold: float, batch_size: int = 8,
+                 resume: bool = False):
         self.data_category = data_category
         self.set_type(data_category)
         if window_size is None or window_size == "":
@@ -293,6 +305,16 @@ class GlomusDetector(GlomusHandler):
             self.output_root_dir, self.TYPE + output_file_ext + ".csv")
         self.log_file = os.path.join(
             self.output_root_dir, self.TYPE + output_file_ext + "_log.csv")
+        # with resume, the slides the timing log holds are skipped and the
+        # outputs appended to
+        self.resume = resume
+        self._completed = set()
+        if resume and os.path.isfile(self.log_file):
+            with open(self.log_file) as f:
+                for line in f.readlines()[1:]:
+                    name = line.split(",")[0].strip().strip('"')
+                    if name:
+                        self._completed.add(name)
         # per-slide metadata
         self.org_slide_width = 0
         self.org_slide_height = 0
@@ -316,11 +338,73 @@ class GlomusDetector(GlomusHandler):
                 window_x, window_y)
 
     # ---------------- main loops ----------------
+    def split_all(self, backend: DetectorBackend):
+        """Scan every slide of the target list; write the detection CSV and
+        the ``file,time`` timing log (opened ``w``, or ``a`` when resuming
+        over a log that holds slides)."""
+        site_name = self.data_dir.split("/")[-2] if "/" in self.data_dir else ""
+        mode = "a" if (self.resume and self._completed) else "w"
+        with open(self.output_file_path, mode) as output_file, \
+                open(self.log_file, mode) as log_file:
+            if mode == "w":
+                log_file.write("file,time\n")
+            for entry in read_target_list(self.target_list):
+                if entry.is_comment:
+                    continue
+                if entry.file_name in self._completed:
+                    print(f"skip {entry.file_name} (already processed)")
+                    continue
+                meta = entry.metadata
+                self.org_slide_width = meta.org_slide_width
+                self.org_slide_height = meta.org_slide_height
+                self.org_slide_objective_power = meta.org_slide_objective_power
+                self.slide_downsample = meta.slide_downsample
+                self.mpp_x = meta.mpp_x
+                self.mpp_y = meta.mpp_y
+
+                target_dir = os.path.join(self.data_dir, self.staining_dir,
+                                          entry.specimen_id)
+                if not os.path.isdir(target_dir):
+                    continue
+                for candidate in sorted(os.listdir(target_dir)):
+                    body, ext = os.path.splitext(candidate)
+                    if entry.file_name.find(body) >= 0 and ext in NDPI_EXT:
+                        image_type = "ndpi"
+                    elif entry.file_name.find(body) >= 0 and ext in PNG_EXT:
+                        image_type = "png"
+                    else:
+                        continue
+                    start_time = time.time()
+                    self.split(backend, image_type, site_name,
+                               entry.specimen_id, candidate, output_file)
+                    log_file.write('"{}",{}\n'.format(
+                        entry.file_name, time.time() - start_time))
+                    log_file.flush()
+                    break
+
+    def split(self, backend, image_type, site_name, patient_id, file_name,
+              output_file):
+        """Scan one file: a PNG through PIL (imported here) with the target
+        list's metadata, a slide through :func:`..wsi.open_slide`."""
+        path = os.path.join(self.data_dir, self.staining_dir, patient_id,
+                            file_name)
+        if image_type == "png":
+            from PIL import Image
+
+            with Image.open(path) as img:
+                self.scan_region_from_image(backend, img, site_name,
+                                            patient_id, file_name,
+                                            output_file)
+        else:
+            with open_slide(path) as slide:
+                self.scan_slide(backend, slide, site_name, patient_id,
+                                file_name, output_file)
+
     def scan_slide(self, backend, slide, site_name, specimen_id, file_name,
                    output_file):
         """Read the slide's size, mpp and objective power, then
-        :meth:`scan_region` (the NDPI branch of the JAX package's
-        ``split``, given an open slide)."""
+        :meth:`scan_region` (the slide branch of :meth:`split`, given an
+        open slide)."""
         self.org_slide_width, self.org_slide_height = slide.dimensions
         self.mpp_x = float(slide.properties[PROPERTY_NAME_MPP_X])
         self.mpp_y = float(slide.properties[PROPERTY_NAME_MPP_Y])
@@ -421,6 +505,34 @@ class GlomusDetector(GlomusHandler):
 
         def offset(i, j):
             return slide_window_x * i, slide_window_y * j
+
+        self._run_windows(backend, windows(), window_x, window_y,
+                          self.slide_downsample, offset, output_file,
+                          site_name, specimen_id, file_name)
+
+    def scan_region_from_image(self, backend, img, site_name, specimen_id,
+                               file_name, output_file):
+        """The PNG path: ``img`` (a PIL image) is the slide at
+        ``slide_downsample``, and the window offsets are scaled to level 0
+        when the rows are written."""
+        (window_x_org, window_y_org, x_split, y_split, window_x,
+         window_y) = self.calc_window_size()
+        slide_window_x = int(window_x * (1.0 - self.OVERLAP_RATIO))
+        slide_window_y = int(window_y * (1.0 - self.OVERLAP_RATIO))
+
+        def windows():
+            for j in range(y_split):
+                for i in range(x_split):
+                    x_start = slide_window_x * i
+                    y_start = slide_window_y * j
+                    region = img.crop((x_start, y_start, x_start + window_x,
+                                       y_start + window_y))
+                    arr = np.asarray(region.convert("RGB"))
+                    yield i, j, arr
+
+        def offset(i, j):
+            return (slide_window_x * i * self.slide_downsample,
+                    slide_window_y * j * self.slide_downsample)
 
         self._run_windows(backend, windows(), window_x, window_y,
                           self.slide_downsample, offset, output_file,

@@ -1,8 +1,10 @@
 """The port's own copies of the JAX package's numpy-only modules on the
 end-to-end path, held to the originals on seeded inputs: ``palette``,
 ``utils/target_list``, ``eval/boundary.bound2line``, ``utils/labelme_io``,
-``pipeline/segment.build_labelme_doc``, ``pipeline/merge`` and
-``pipeline/seg_data.MAGNIFICATION``."""
+``pipeline/segment.build_labelme_doc``, ``pipeline/merge``,
+``pipeline/seg_data.MAGNIFICATION``, and the ``gseg-merge`` and
+``gseg-make-target-list`` commands (``cli/merge.py``,
+``cli/make_target_list.py``)."""
 import dataclasses
 import json
 
@@ -10,6 +12,8 @@ import numpy as np
 import pytest
 
 from glomeruli_segmentation_tpu import palette as jax_palette
+from glomeruli_segmentation_tpu.cli import make_target_list as jax_make_list
+from glomeruli_segmentation_tpu.cli import merge as jax_cli_merge
 from glomeruli_segmentation_tpu.eval import boundary as jax_boundary
 from glomeruli_segmentation_tpu.pipeline import merge as jax_merge
 from glomeruli_segmentation_tpu.pipeline import seg_data as jax_seg_data
@@ -17,6 +21,8 @@ from glomeruli_segmentation_tpu.pipeline import segment as jax_segment
 from glomeruli_segmentation_tpu.utils import labelme_io as jax_labelme
 from glomeruli_segmentation_tpu.utils import target_list as jax_targets
 from glomeruli_segmentation_tpu_torch import palette
+from glomeruli_segmentation_tpu_torch.cli import make_target_list
+from glomeruli_segmentation_tpu_torch.cli import merge as cli_merge
 from glomeruli_segmentation_tpu_torch.eval import boundary
 from glomeruli_segmentation_tpu_torch.pipeline import merge, seg_data, segment
 from glomeruli_segmentation_tpu_torch.utils import labelme_io, target_list
@@ -174,10 +180,9 @@ def test_box_merger_matches_jax(seed, threshold):
         assert merge.overlap_area(a, b) == jax_merge.overlap_area(a, b)
 
 
-def test_run_merge_matches_jax(tmp_path):
-    """The staged merger over a detect CSV of two slides (PNG inputs with
-    metadata in the target list): the same merged CSV; the timing log's
-    file column the same."""
+def _detect_csv(tmp_path):
+    """A detect CSV of two slides (PNG inputs with metadata in the target
+    list) -> (its path, the target list's path)."""
     targets = tmp_path / "targets.txt"
     targets.write_text("P1/a,4096,4096,40,8,0.25,0.25\n"
                        "P2/b,4096,4096,40,8,0.3,0.3\n")
@@ -188,6 +193,13 @@ def test_run_merge_matches_jax(tmp_path):
                          f'{conf}\n')
     detect_csv = tmp_path / "detect.csv"
     detect_csv.write_text("".join(lines))
+    return detect_csv, targets
+
+
+def test_run_merge_matches_jax(tmp_path):
+    """The staged merger over a detect CSV of two slides: the same merged
+    CSV; the timing log's file column the same."""
+    detect_csv, targets = _detect_csv(tmp_path)
     outs = {}
     for name, mod in (("port", merge), ("jax", jax_merge)):
         outs[name] = mod.run_merge("OPT_PAS", str(detect_csv),
@@ -203,3 +215,48 @@ def test_run_merge_matches_jax(tmp_path):
     with pytest.raises(merge.MergeOverlappedGlomeruliError):
         merge.run_merge("OPT_PAS", str(bad), str(tmp_path / "bad"), "t",
                         0.5, str(tmp_path), 0.35, str(targets))
+
+
+def test_merge_cli_matches_jax(tmp_path):
+    """``cli/merge.main`` on a detect CSV: the merged CSV byte-identical to
+    the JAX package's, the timing log's file column the same."""
+    detect_csv, targets = _detect_csv(tmp_path)
+    for name, mod in (("port", cli_merge), ("jax", jax_cli_merge)):
+        mod.main(["--staining", "OPT_PAS", "--target_list", str(targets),
+                  "--detected_list", str(detect_csv),
+                  "--output_dir", str(tmp_path / name),
+                  "--output_file_ext", "c", "--conf_threshold", "0.5",
+                  "--data_dir", str(tmp_path), "--overlap_threshold", "0.35"])
+    got = (tmp_path / "port" / "OPT_PAS_GlomusMergedList_c.csv").read_bytes()
+    assert got == (tmp_path / "jax" /
+                   "OPT_PAS_GlomusMergedList_c.csv").read_bytes()
+    assert got.count(b"\n") > 2
+    logs = [[ln.split(",")[0] for ln in (tmp_path / name /
+             "OPT_PAS_GlomusMergedList_c_log.csv").read_text().splitlines()]
+            for name in ("port", "jax")]
+    assert logs[0] == logs[1] == ['"a.png"', '"b.png"']
+
+
+def test_make_target_list_cli_matches_jax(tmp_path):
+    """``cli/make_target_list.main``: the same target list as the JAX
+    package's from one base CSV and slide directory, and the same refusal
+    of a directory without exactly one slide."""
+    data = tmp_path / "slides"
+    for d, f in (("H16-2", "H16-2_PAS.ndpi"), ("H16-1", "x.tiff"),
+                 ("H16-3", "y.tif")):
+        (data / d).mkdir(parents=True)
+        (data / d / f).write_bytes(b"")
+    (data / "H16-1" / "notes.txt").write_text("")
+    base = tmp_path / "base.csv"
+    base.write_text("a,b,c,H16-2\na,b,c,H16-1\na,b,c,H16-3\na,b,c,H16-1\n")
+    for name, mod in (("port", make_target_list), ("jax", jax_make_list)):
+        mod.main(["--base_list_csv", str(base), "--data_dir", str(data),
+                  "--output_file", str(tmp_path / f"{name}.txt")])
+    got = (tmp_path / "port.txt").read_text()
+    assert got == (tmp_path / "jax.txt").read_text()
+    assert got == "H16-1/x\nH16-2/H16-2_PAS\nH16-3/y\n"
+    (data / "H16-3" / "z.tif").write_bytes(b"")
+    for mod in (make_target_list, jax_make_list):
+        with pytest.raises(AssertionError):
+            mod.main(["--base_list_csv", str(base), "--data_dir", str(data),
+                      "--output_file", str(tmp_path / "bad.txt")])

@@ -35,5 +35,7 @@ def test_port_and_chip_smoke_import_without_jax():
     # models/inception_v2, models/od_api_frcnn) and the end-to-end slice's
     # (palette, eval, eval/boundary, cli, cli/detect, cli/e2e, pipeline/
     # e2e, merge, segment, seg_data, utils/labelme_io, utils/target_list,
-    # wsi/tiff_reader, wsi/synthetic)
-    assert count >= 41, proc.stdout
+    # wsi/tiff_reader, wsi/synthetic) and the server and detect-stage
+    # slice's (pipeline/serve, cli/serve, cli/warmup, cli/merge,
+    # cli/make_target_list)
+    assert count >= 46, proc.stdout
