@@ -73,10 +73,24 @@
    ``--resume`` leaving the CSV and the timing log byte-identical) and
    ``gseg-merge`` (``cli/merge.main`` at 0.9 / 0.35: the e2e phase's
    merged boxes);
-10. runs ``gseg-warmup`` (``python -m ...cli.warmup``, flat transfer, the
+10. runs the staged segment-and-evaluate chain on a written GT slide
+    (12288x9216 px at 0.2265 um/px, 32 glomeruli of radius 320 to 520 px,
+    a Pascal-VOC XML, labelme GT JSONs, a detection CSV of the GT boxes
+    grown by 8 px and two false positives) through the port's commands:
+    ``gseg-merge`` (0.9 / 0.35), ``gseg-make-seg-data`` in GT mode (recall
+    1.0, one crop and one label per merged box), ``gseg-segment`` with the
+    e2e phase's fold-1 checkpoint at the command's defaults (f32, TF32
+    off, batch 8) with ``--engine fused`` (K1 launches 8 a batch) and then
+    ``--engine xla`` (none), the count set to 0 before and read after each
+    (class maps of the two equal on >= 0.999 of pixels, pixel counts
+    summing to each crop's area), and ``gseg-eval-wsi`` in GT mode (one
+    slide row and a total row with a finite mIoU); before the chain, K1
+    against its plain version at the command's shape (8, 64, 128, 128) in
+    f32; stage seconds, crops/s, host spans and peak memory per engine;
+11. runs ``gseg-warmup`` (``python -m ...cli.warmup``, flat transfer, the
     1104-px window) in a fresh process with the kernels already built: exit
     code 0, its ``warmed:`` line, its wall time and line times;
-11. runs ``gseg-serve`` (``cli/serve.main``) in this process with
+12. runs ``gseg-serve`` (``cli/serve.main``) in this process with
     ``--no_json`` at the CLI's other defaults over four tickets (two
     patients on the e2e slide, a second ticket for the first, a missing
     slide), with the K1, K2 and K3 counts set to 0 before and read after:
@@ -84,9 +98,10 @@
     merged rows and overlay byte-identical to the e2e ``--no_json`` run's,
     the launches, per-ticket times, the server's start, host RSS and
     device memory;
-12. prints one JSON line of kernel results (K3 once per detector, each with
-    its launches in the e2e run and in the server run) and, last, one JSON
-    status line.
+13. prints one JSON line of kernel results (K3 once per detector, each with
+    its launches in the e2e run and in the server run; K1 also with its
+    launches in the staged fused segment run and its f32 case there) and,
+    last, one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
@@ -110,7 +125,10 @@ import torch
 
 from glomeruli_segmentation_tpu_torch import read_host, readback, tf32
 from glomeruli_segmentation_tpu_torch.cli import detect as detect_cli
+from glomeruli_segmentation_tpu_torch.cli import eval_wsi as eval_wsi_cli
+from glomeruli_segmentation_tpu_torch.cli import make_seg_data as seg_data_cli
 from glomeruli_segmentation_tpu_torch.cli import merge as merge_cli
+from glomeruli_segmentation_tpu_torch.cli import segment as segment_cli
 from glomeruli_segmentation_tpu_torch.cli import serve as serve_cli
 from glomeruli_segmentation_tpu_torch.cli.e2e import (
     build_parser,
@@ -153,6 +171,8 @@ from glomeruli_segmentation_tpu_torch.ops.esp_block import (
 from glomeruli_segmentation_tpu_torch.ops.nms import nms, nms_plain, premask
 from glomeruli_segmentation_tpu_torch.pipeline import e2e as e2e_module
 from glomeruli_segmentation_tpu_torch.pipeline import fused as fused_module
+from glomeruli_segmentation_tpu_torch.pipeline import seg_data as seg_data_module
+from glomeruli_segmentation_tpu_torch.pipeline import segment as segment_module
 from glomeruli_segmentation_tpu_torch.pipeline import serve as serve_module
 from glomeruli_segmentation_tpu_torch.pipeline.detect import (
     GlomusDetector,
@@ -167,7 +187,12 @@ from glomeruli_segmentation_tpu_torch.pipeline.fused import (
     EnsembleSegmenter,
     FusedSlideSegmenter,
 )
+from glomeruli_segmentation_tpu_torch.utils.labelme_io import (
+    img_arr_to_b64,
+    img_b64_to_arr,
+)
 from glomeruli_segmentation_tpu_torch.wsi.synthetic import (
+    pas_like_image,
     write_pyramidal_tiff,
 )
 from glomeruli_segmentation_tpu_torch.wsi.tiff_reader import Slide
@@ -237,6 +262,17 @@ E2E_COMPRESSION = "jpeg"
 # segmenter of both packages cannot crop
 
 E2E_DETECTOR_SEED = 0
+# the staged segment phase: a GT slide of 12288 x 9216 px at the e2e
+# phase's 0.2265 um/px, 40x, with 32 glomeruli of radius 40 to 65 px at
+# level 3 (320 to 520 px at level 0) on a jittered 4 x 8 grid, so that no
+# two GT boxes (and their 20 um margin frames' right and bottom edges) meet
+# or leave the slide; two false positives lie between the first two rows.
+# The patient id has 9 characters: scan_files keys a slide by the first 9
+# characters of its name
+SEG_SLIDE_HW, SEG_GRID, SEG_PATIENT = (9216, 12288), (4, 8), "S24-00001"
+SEG_RADII = (40, 65)
+SEG_FALSE_POSITIVES = ((800, 1900, 1500, 2600), (6000, 1950, 6600, 2550))
+SEG_BATCH = 8
 
 
 def check(ok: bool, message: str) -> None:
@@ -1648,6 +1684,289 @@ def staged_detect_phase(e2e: dict, model_dir: Path, name_power: str) -> dict:
     return {"k3": k3, "scan_s": scan_s, "wall": wall}
 
 
+def staged_segment_tree(root: Path) -> dict:
+    """The example-data layout of the staged chain around a written GT
+    slide (``SEG_SLIDE_HW``): the pyramid under ``data/02_PAS/<patient>/``,
+    drawn at level 3 and expanded 8x in blocks; a Pascal-VOC XML at ds8;
+    one labelme GT JSON per glomerulus, sized to its margin frame (as
+    ``tests/test_pipeline_integration.py``'s fixture writes them); a
+    detection CSV of the GT boxes grown by 8 px and the two false
+    positives; and the target list."""
+    rng = np.random.RandomState(5)
+    h0, w0 = SEG_SLIDE_HW
+    rows, cols = SEG_GRID
+    ch, cw = h0 // 8 // rows, w0 // 8 // cols
+    centers = [(j * cw + cw // 2 - 4 + int(rng.randint(-6, 7)),
+                i * ch + ch // 2 + int(rng.randint(-6, 7)),
+                int(rng.randint(SEG_RADII[0], SEG_RADII[1] + 1)))
+               for i in range(rows) for j in range(cols)]
+    level3, _ = pas_like_image(h0 // 8, w0 // 8, seed=5, centers=centers)
+    base = np.repeat(np.repeat(level3, 8, axis=0), 8, axis=1)
+    pid = SEG_PATIENT
+    slide_dir = root / "data" / "02_PAS" / pid
+    (slide_dir / "annotations").mkdir(parents=True)
+    write_pyramidal_tiff(str(slide_dir / f"{pid}.tiff"), base, mpp=DET_MPP,
+                         objective_power=40.0, compression=E2E_COMPRESSION)
+    margin = int(round(20.0 / DET_MPP))
+    gt_boxes, objects, docs = [], [], root / "seg_annotation" / pid
+    docs.mkdir(parents=True)
+    for cx, cy, r in centers:
+        cx0, cy0, r0 = cx * 8 + 4, cy * 8 + 4, r * 8
+        x1, y1 = (cx0 - r0 - 16) // 8 * 8, (cy0 - r0 - 16) // 8 * 8
+        x2, y2 = (cx0 + r0 + 16) // 8 * 8, (cy0 + r0 + 16) // 8 * 8
+        fx1, fy1, fx2, fy2 = x1 - margin, y1 - margin, x2 + 2 * margin, \
+            y2 + 2 * margin
+        check(fx1 >= 0 and fy1 >= 0 and fx2 <= w0 and fy2 <= h0,
+              "staged segment: a GT margin frame leaves the slide")
+        gt_boxes.append((x1, y1, x2, y2))
+        objects.append(f"  <object><name>glomerulus</name><bndbox><xmin>"
+                       f"{x1 // 8}</xmin><ymin>{y1 // 8}</ymin><xmax>"
+                       f"{x2 // 8}</xmax><ymax>{y2 // 8}</ymax></bndbox>"
+                       f"</object>\n")
+        theta = np.linspace(0, 2 * np.pi, 40)
+        doc = {"shapes": [{"label": "glomerulus", "points": [
+                   [float(cx0 - fx1 + r0 * np.cos(t)),
+                    float(cy0 - fy1 + r0 * np.sin(t))] for t in theta],
+                   "line_color": None, "fill_color": None}],
+               "imagePath": "frame.png",
+               "imageData": img_arr_to_b64(base[fy1:fy2, fx1:fx2])}
+        (docs / f"xmin{x1 // 8}_ymin{y1 // 8}_xmax{x2 // 8}_ymax{y2 // 8}"
+                f".json").write_text(json.dumps(doc))
+    del base
+    (slide_dir / "annotations" / f"OPT_PAS_{pid}_{pid}_pw40_ds8.xml") \
+        .write_text("<annotation>\n" + "".join(objects) + "</annotation>\n")
+    row = f'"S","{pid}","{pid}.tiff",new,2026-01-01T00:00:00,'
+    detections = [row + f"{x1 - 8},{y1 - 8},{x2 + 8},{y2 + 8},0.97"
+                  for x1, y1, x2, y2 in gt_boxes]
+    detections += [row + ",".join(map(str, fp)) + ",0.95"
+                   for fp in SEG_FALSE_POSITIVES]
+    (root / "detections.csv").write_text("\n".join(detections) + "\n")
+    (root / "targets.txt").write_text(f"{pid}/{pid}\n")
+    return {"gt_boxes": gt_boxes, "radii": [r * 8 for *_, r in centers]}
+
+
+def staged_k1_case(fold1: Path, name_power: str) -> dict:
+    """K1 against its plain version at ``gseg-segment``'s shape: one fold's
+    first level-3 block, batch 8, f32 with TF32 off; timed in turns."""
+    ops = [torch.from_numpy(v) for v in pack_esp_weights(
+        load_espnet_state_dict(str(fold1)), "encoder.level3.0.")]
+    shape = (SEG_BATCH,) + K1_SHAPE[1:]
+    with tf32(False, False):
+        x = torch.randn(shape, generator=torch.Generator(device="cuda")
+                        .manual_seed(9), device="cuda")
+        case = block_case("K1 staged segment", esp_block_fused,
+                          esp_block_plain, x, ops, math.prod(shape[:3]))
+    print_block_case("K1 esp_block_fused (gseg-segment's level 3, one fold)",
+                     case, name_power)
+    return case
+
+
+def staged_segment_phase(ckpt_dir: Path, name_power: str) -> dict:
+    """The staged segment-and-evaluate chain on a written GT slide through
+    the port's commands: ``gseg-merge`` (0.9 / 0.35), ``gseg-make-seg-data``
+    in GT mode, ``gseg-segment`` with the e2e phase's fold-1 checkpoint at
+    the command's defaults (f32, ``--precision highest``, batch 8) with
+    ``--engine fused`` and then with the default ``--engine xla``, and
+    ``gseg-eval-wsi`` in GT mode on the fused run's JSONs.  Holds K1 to its
+    plain version at this path's shape in f32 first, then checks recall,
+    the K1 launches of each run (the count set to 0 just before and read
+    just after), the two engines' class maps against each other, the pixel
+    counts and the TSV; prints stage seconds, crops/s, host spans and peak
+    memory.  Returns the fused run's K1 launches and the K1 case."""
+    import cv2
+
+    root = WORK / "staged_segment"
+    shutil.rmtree(root, ignore_errors=True)
+    stage_s = {}
+    t0 = time.perf_counter()
+    tree = staged_segment_tree(root)
+    stage_s["slide, XML, GT JSONs, CSV"] = time.perf_counter() - t0
+    pid, n_gt = SEG_PATIENT, len(tree["gt_boxes"])
+    fold1 = ckpt_dir / "espnet_fold1.pth"
+    mean, std = FOLD_NORMALIZATION[1]
+
+    k1_case = staged_k1_case(fold1, name_power)
+
+    t0 = time.perf_counter()
+    merge_cli.main(["--staining", "OPT_PAS", "--target_list",
+                    str(root / "targets.txt"), "--detected_list",
+                    str(root / "detections.csv"), "--output_dir",
+                    str(root / "merged"), "--conf_threshold", "0.9",
+                    "--data_dir", str(root / "data"), "--overlap_threshold",
+                    "0.35"])
+    stage_s["gseg-merge"] = time.perf_counter() - t0
+    merged_csv = root / "merged" / "OPT_PAS_GlomusMergedList_.csv"
+    n_merged = len(merged_csv.read_text().splitlines())
+    check(n_merged == n_gt + len(SEG_FALSE_POSITIVES),
+          f"staged segment: {n_merged} merged boxes, want "
+          f"{n_gt + len(SEG_FALSE_POSITIVES)}")
+
+    scans = []
+    scan_files = seg_data_module.SegDataGenerator.scan_files
+
+    def recording_scan(self):
+        rows = scan_files(self)
+        scans.append(rows)
+        return rows
+
+    seg_out = root / "seg_data"
+    seg_data_module.SegDataGenerator.scan_files = recording_scan
+    t0 = time.perf_counter()
+    try:
+        seg_data_cli.main([
+            "--staining", "OPT_PAS", "--merged_detection_result_csv",
+            str(merged_csv), "--target_list", str(root / "targets.txt"),
+            "--wsi_dir", str(root / "data" / "02_PAS"),
+            "--segmentation_gt_json_dir", str(root / "seg_annotation"),
+            "--object_detection_gt_xml_dir", str(root / "data"),
+            "--output_dir", str(seg_out)])
+    finally:
+        seg_data_module.SegDataGenerator.scan_files = scan_files
+    stage_s["gseg-make-seg-data"] = time.perf_counter() - t0
+    check(len(scans) == 1 and len(scans[0]) == 1,
+          f"staged segment: scan_files ran {scans}")
+    _, recall, hits, gts, dets = scans[0][0]
+    crops = sorted((seg_out / "org_image" / pid).glob("*.PNG"))
+    labels = sorted((seg_out / "label" / "all" / pid).glob("*.PNG"))
+    check((recall, hits, gts, dets) == (1.0, n_gt, str(n_gt), str(n_merged))
+          and len(crops) == len(labels) == n_merged,
+          f"staged segment: scan_files {scans[0][0]}, {len(crops)} crops, "
+          f"{len(labels)} labels, {n_merged} merged boxes")
+    from PIL import Image
+
+    areas = {}
+    for crop in crops:
+        with Image.open(crop) as im:
+            areas[crop.name] = im.size[0] * im.size[1]
+
+    spans = HostSpans()
+    spans.wrap(cv2, "imread", "PNG reads")
+    spans.wrap(segment_module, "preprocess_host", "cv2 preprocess")
+    spans.wrap(segment_module.EspnetSegmenter, "__init__",
+               "segmenter load (checkpoint, model)")
+    spans.wrap(segment_module.EspnetSegmenter, "submit_net_res",
+               "submits (preprocess, upload, launch)")
+    spans.wrap(segment_module.EspnetSegmenter, "read_net_res",
+               "waits for results")
+    spans.wrap(segment_module, "build_labelme_doc",
+               "JSON documents (contours, PNG, b64)")
+    spans.wrap(json, "dump", "JSON writes")
+    spans.wrap(cv2, "addWeighted", "overlay blends")
+    spans.wrap(cv2, "imwrite", "image writes (overlay JPG, org PNG, "
+               "combined PNG)")
+    runs = {}
+    try:
+        for engine in ("fused", "xla"):
+            pred = root / f"pred_{engine}"
+            argv = ["--rgb_data_dir", str(seg_out / "org_image"),
+                    "--label_data_dir", str(seg_out / "label" / "all"),
+                    "--savedir", str(pred), "--weights", str(fold1),
+                    "--decoder", "--cityFormat", "--json_image_data",
+                    "classmap", "--colored", "--overlay",
+                    "--mean", *map(str, mean), "--std", *map(str, std)]
+            if engine == "fused":
+                argv += ["--engine", "fused"]
+            spans.take()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            esp_block_fused.launches = 0
+            t0 = time.perf_counter()
+            segment_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[engine] = {"pred": pred, "wall": wall,
+                            "launches": esp_block_fused.launches,
+                            "peak_gb": torch.cuda.max_memory_allocated()
+                            / 1e9, "spans": spans.take()}
+            stage_s[f"gseg-segment {engine}"] = wall
+    finally:
+        spans.restore()
+
+    t0 = time.perf_counter()
+    tsv = root / "eval" / "seg_data_output.tsv"
+    eval_wsi_cli.main([
+        "--staining", "OPT_PAS", "--merged_detection_result_csv",
+        str(merged_csv), "--target_list", str(root / "targets.txt"),
+        "--wsi_dir", str(root / "data" / "02_PAS"),
+        "--segmentation_pred_json_dir", str(runs["fused"]["pred"]),
+        "--object_detection_gt_xml_dir", str(root / "data"),
+        "--segmentation_gt_json_dir", str(root / "seg_annotation"),
+        "--segmentation_gt_png_dir", str(seg_out / "label" / "all"),
+        "--output_file", str(tsv), "--output_dir", str(root / "eval")])
+    stage_s["gseg-eval-wsi"] = time.perf_counter() - t0
+
+    # ---- what came out ----
+    want_k1 = 8 * math.ceil(n_merged / SEG_BATCH)
+    launches = (runs["fused"]["launches"], runs["xla"]["launches"])
+    check(launches == (want_k1, 0), f"staged segment: K1 launches (fused, "
+          f"xla) {launches}, want ({want_k1}, 0)")
+    same = total = 0
+    for engine, r in runs.items():
+        jsons = sorted((r["pred"] / pid).glob("*.json"))
+        check(len(jsons) == n_merged, f"staged segment {engine}: "
+              f"{len(jsons)} JSONs for {n_merged} crops")
+        rows = (r["pred"] / "summary_pixel.csv").read_text().splitlines()[1:]
+        check(len(rows) == n_merged, f"staged segment {engine}: {len(rows)}"
+              " pixel-count rows")
+        for row in rows:
+            cells = row.split(",")
+            area = areas[cells[1].replace(".png", ".PNG")]
+            check(sum(int(v) for v in cells[2:]) == area,
+                  f"staged segment {engine}: {cells[1]}'s pixel counts do "
+                  f"not sum to its area {area}")
+    classes_seen = set()
+    for path in sorted((runs["fused"]["pred"] / pid).glob("*.json")):
+        a = img_b64_to_arr(json.loads(path.read_text())["imageData"])
+        b = img_b64_to_arr(json.loads(
+            (runs["xla"]["pred"] / pid / path.name).read_text())["imageData"])
+        check(a.shape == b.shape, f"staged segment: {path.name} shapes")
+        same += int((a == b).sum())
+        total += a.size
+        classes_seen |= set(np.unique(a).tolist())
+    agree = same / total
+    check(agree >= 0.999, f"staged segment: fused and xla class maps agree "
+                          f"on {agree:.6f} of pixels")
+    text = tsv.read_text().split("\n")
+    miou = float(text[-1].split("\t")[-1])
+    check(len(text) == 2 and text[0].startswith(pid + "\t")
+          and text[1].startswith("total\t") and math.isfinite(miou),
+          f"staged segment: TSV {text}")
+    overlays = sorted(p.name for p in (root / "eval").glob("*.jpg"))
+    check(overlays == [f"{pid}_gt.jpg", f"{pid}_pred.jpg"],
+          f"staged segment: eval overlays {overlays}")
+
+    sides = np.asarray([(b[2] - b[0] + 16, b[3] - b[1] + 16)
+                        for b in tree["gt_boxes"]])
+    print(f"staged segment (gseg-merge 0.9 / 0.35, gseg-make-seg-data GT "
+          f"mode, gseg-segment fold 1 at the command's defaults: f32, "
+          f"precision highest, batch {SEG_BATCH}, 512x1024; gseg-eval-wsi GT "
+          f"mode, window 2400): slide {SEG_SLIDE_HW[1]}x{SEG_SLIDE_HW[0]} at "
+          f"{DET_MPP} um/px, {n_gt} glomeruli (radius {min(tree['radii'])} "
+          f"to {max(tree['radii'])} px), {n_merged} merged boxes and crops "
+          f"(sides {sides.min()} to {sides.max()} px; 2 false positives), "
+          f"recall {recall}; K1 launches (fused, xla) {launches}; fused and "
+          f"xla class maps equal on {agree:.6f} of {total} pixels; classes "
+          f"{sorted(classes_seen)}; TSV total mIoU {miou:.6f} (random "
+          f"weights) | {name_power}", flush=True)
+    print("staged segment stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_s.items()) + f" | {name_power}",
+        flush=True)
+    for engine, r in runs.items():
+        load = r["spans"].get("segmenter load (checkpoint, model)",
+                              (0.0, 0))[0]
+        print(f"staged segment gseg-segment --engine {engine}: {n_merged} "
+              f"crops in {r['wall']:.3f} s ({n_merged / r['wall']:.2f} "
+              f"crops/s; {n_merged / (r['wall'] - load):.2f} crops/s after "
+              f"the {load:.3f} s load), K1 launches {r['launches']}, peak "
+              f"memory {r['peak_gb']:.3f} GB | {name_power}", flush=True)
+        print("  host spans (s, calls): " + "; ".join(
+            f"{k} {v[0]:.3f}/{v[1]}" for k, v in
+            sorted(r["spans"].items(), key=lambda kv: -kv[1][0])),
+            flush=True)
+    return {"launches": launches[0], "k1": k1_case, "stage_s": stage_s,
+            "walls": {e: r["wall"] for e, r in runs.items()}}
+
+
 def warmup_phase(ckpt_dir: Path, model_dir: Path, name_power: str) -> dict:
     """``gseg-warmup`` in a fresh process, the kernels already built: its
     exit code, its ``warmed:`` line, its wall time and when each of its
@@ -2018,6 +2337,8 @@ def main() -> int:
     model_dir = write_model_dir(e2e["params"], WORK / "model")
     staged_detect_phase(e2e, model_dir, name_power)
     phase_done("staged detect")
+    staged = staged_segment_phase(WORK / "folds", name_power)
+    phase_done("staged segment")
     warmup_phase(WORK / "folds", model_dir, name_power)
     phase_done("warm-up")
     served = serve_phase(e2e, WORK / "folds", model_dir, name_power)
@@ -2063,7 +2384,11 @@ def main() -> int:
         esp_entry("esp_block_fused", "esp_block.cu",
                   "esp_block.py:72 (_esp_kernel)", k1, launches,
                   e2e_launches=e2e["launches"][0],
-                  serve_launches=served["launches"][0]),
+                  serve_launches=served["launches"][0],
+                  staged_segment_launches=staged["launches"],
+                  staged_segment_f32={k: staged["k1"][k] for k in (
+                      "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by")}),
         esp_entry("esp_block_padded", "esp_block_dma.cu",
                   "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches,
                   composed_ms=k2_composed_ms,

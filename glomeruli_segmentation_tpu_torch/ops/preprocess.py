@@ -1,6 +1,8 @@
-"""Crop preprocessing for ESPNet inference: the cv2-exact bilinear resize of
-a padded crop batch, the ragged flat crop transfer, and the nearest resize
-of class maps back to crop size.
+"""Crop preprocessing for ESPNet inference: the reference-exact cv2 path
+(:func:`preprocess_host`), the cv2-exact bilinear resize of a padded crop
+batch and the fused resize and normalise built on it
+(:func:`preprocess_batch_device`), the ragged flat crop transfer, and the
+nearest resize of class maps back to crop size.
 
 Counterpart of ``glomeruli_segmentation_tpu/ops/preprocess.py``.  The JAX
 package vmaps its per-crop functions; here the batch dimension is written
@@ -12,6 +14,23 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def preprocess_host(img_bgr: np.ndarray, mean, std, width: int = 1024,
+                    height: int = 512) -> np.ndarray:
+    """Reference-exact preprocessing (``VisualizeResults_iou.py:103-119``):
+    subtract the BGR mean, divide by the std, ``cv2.resize`` to (width,
+    height), divide by 255.  Returns (H, W, 3) float32 (NHWC order)."""
+    import cv2
+
+    img = img_bgr.astype(np.float32)
+    for j in range(3):
+        img[:, :, j] -= mean[j]
+    for j in range(3):
+        img[:, :, j] /= std[j]
+    img = cv2.resize(img, (width, height))
+    img /= 255.0
+    return img
 
 
 def _dynamic_linear_gather(img: torch.Tensor, src_size: torch.Tensor,
@@ -50,6 +69,21 @@ def resize_bilinear_dynamic(img: torch.Tensor, src_h: torch.Tensor,
     float32."""
     img = _dynamic_linear_gather(img, src_h, out_h, axis=1)
     return _dynamic_linear_gather(img, src_w, out_w, axis=2)
+
+
+def preprocess_batch_device(padded: torch.Tensor, heights: torch.Tensor,
+                            widths: torch.Tensor, mean_std: torch.Tensor,
+                            out_h: int = 512,
+                            out_w: int = 1024) -> torch.Tensor:
+    """Fused resize and normalise of a batch of padded BGR uint8 crops, on
+    their device: ``padded`` (B, maxH, maxW, 3) with the valid region
+    top-left, ``heights``/``widths`` (B,) the valid extents, ``mean_std``
+    (2, 3) float32 whose rows are the BGR mean and std.  Returns the
+    (B, out_h, out_w, 3) float32 network input: the raw pixels resized,
+    then ``(x - mean) / std / 255``, which equals :func:`preprocess_host`
+    up to float rounding."""
+    resized = resize_bilinear_dynamic(padded, heights, widths, out_h, out_w)
+    return (resized - mean_std[0]) / mean_std[1] / 255.0
 
 
 def unflatten_crops(flat: torch.Tensor, offsets: torch.Tensor,

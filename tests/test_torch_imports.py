@@ -37,5 +37,7 @@ def test_port_and_chip_smoke_import_without_jax():
     # e2e, merge, segment, seg_data, utils/labelme_io, utils/target_list,
     # wsi/tiff_reader, wsi/synthetic) and the server and detect-stage
     # slice's (pipeline/serve, cli/serve, cli/warmup, cli/merge,
-    # cli/make_target_list)
-    assert count >= 46, proc.stdout
+    # cli/make_target_list) and the staged segment-and-evaluate chain's
+    # (utils/annotation, utils/timing, eval/iou_eval, pipeline/eval_wsi,
+    # cli/make_seg_data, cli/segment, cli/eval_wsi)
+    assert count >= 53, proc.stdout
