@@ -98,10 +98,35 @@
     merged rows and overlay byte-identical to the e2e ``--no_json`` run's,
     the launches, per-ticket times, the server's start, host RSS and
     device memory;
-13. prints one JSON line of kernel results (K3 once per detector, each with
-    its launches in the e2e run and in the server run; K1 also with its
-    launches in the staged fused segment run and its f32 case there) and,
-    last, one JSON status line.
+13. runs the SegFormer/GTCS model family at the published MiT widths on
+    seeded port-initialised weights: mit-b0 and mit-b4 written as the
+    trainer's ``flax_model.pth`` and read back (both geometries recovered
+    from the state dict), the b0 forward on the card against the same
+    module on the CPU at (8, 512, 512, 3) in float32 with TF32 off (logits
+    within 1e-3, argmax agreeing on >= 0.999 of pixels), ms per batch by
+    CUDA events, crops/s, TFLOP/s and peak memory for b0 at batch 32 and
+    b4 at batch 8 in float32 and bf16, the bf16-vs-f32 argmax agreement,
+    and a traced b0 batch by operator group;
+14. runs ``gseg-e2e --segformer_checkpoint`` (``cli/e2e.main``) with the b0
+    checkpoint, the e2e phase's OD-API detector and slide, once with
+    ``--no_json`` (the device gather) and once writing the label PNGs, with
+    the K1, K2 and K3 counts set to 0 before and read after each: (0, 0, 6)
+    per slide, one mode-'L' PNG of each merged box's size with values
+    below 5, the two canvases byte-identical, the merged CSV the ESPNet e2e
+    phase's, the overlay written; s/slide, host spans and peak memory;
+15. runs the staged GTCS chain on the staged segment phase's GT slide: the
+    crops over their 20 um margin frames and GTCS label PNGs in the JAX
+    package's fixture layout, two mit-b4 checkpoints and a ``log.txt``,
+    ``gseg-segformer-test --save_image 1`` (the checkpoint ``log.txt``
+    names, one row per crop with pixel counts summing to its label's area,
+    a finite mIoU) and ``gseg-eval-wsi-gtcs --evaluate`` on its ``seg/``
+    and, as a control, on the GT labels (a 7-field total row; the
+    control's accuracy above 0.999);
+16. prints one JSON line of kernel results (K3 once per detector, each with
+    its launches in the e2e run and in the server run, the OD-API one also
+    in the SegFormer e2e run; K1 and K2 with their launches there too, 0;
+    K1 also with its launches in the staged fused segment run and its f32
+    case there) and, last, one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
@@ -125,6 +150,7 @@ import torch
 
 from glomeruli_segmentation_tpu_torch import read_host, readback, tf32
 from glomeruli_segmentation_tpu_torch.cli import detect as detect_cli
+from glomeruli_segmentation_tpu_torch.cli import e2e as e2e_cli
 from glomeruli_segmentation_tpu_torch.cli import eval_wsi as eval_wsi_cli
 from glomeruli_segmentation_tpu_torch.cli import make_seg_data as seg_data_cli
 from glomeruli_segmentation_tpu_torch.cli import merge as merge_cli
@@ -145,11 +171,20 @@ from glomeruli_segmentation_tpu_torch.convert.espnet_import import (
 from glomeruli_segmentation_tpu_torch.convert.pb_import import (
     random_od_api_consts,
 )
+from glomeruli_segmentation_tpu_torch.convert.segformer_import import (
+    save_flax_checkpoint,
+)
 from glomeruli_segmentation_tpu_torch.models.faster_rcnn import (
     FasterRCNNConfig,
     build_anchors,
 )
 from glomeruli_segmentation_tpu_torch.models.espnet import create_espnet
+from glomeruli_segmentation_tpu_torch.models.segformer import (
+    Segformer,
+    SegformerConfig,
+    config_from_state_dict,
+    random_segformer_state_dict,
+)
 from glomeruli_segmentation_tpu_torch.models.espnet_fused import FusedESPNet
 from glomeruli_segmentation_tpu_torch.models.espnet_packed import (
     PackedEnsembleESPNet,
@@ -190,6 +225,7 @@ from glomeruli_segmentation_tpu_torch.pipeline.fused import (
 from glomeruli_segmentation_tpu_torch.utils.labelme_io import (
     img_arr_to_b64,
     img_b64_to_arr,
+    lblsave,
 )
 from glomeruli_segmentation_tpu_torch.wsi.synthetic import (
     pas_like_image,
@@ -273,6 +309,24 @@ SEG_SLIDE_HW, SEG_GRID, SEG_PATIENT = (9216, 12288), (4, 8), "S24-00001"
 SEG_RADII = (40, 65)
 SEG_FALSE_POSITIVES = ((800, 1900, 1500, 2600), (6000, 1950, 6600, 2550))
 SEG_BATCH = 8
+# the SegFormer/GTCS family at the published MiT widths: mit-b0 (the JAX
+# package's SegformerConfig() default and the trainer's default backbone)
+# and mit-b4 (the geometry of the reference test's default model,
+# segformer/20220804_b4), 5 labels, 512x512 input; port-initialised seeded
+# weights with the classifier scaled, which widens the logits' top-2 margins
+SEGFORMER_CONFIGS = {
+    "mit-b0": SegformerConfig(),
+    "mit-b4": SegformerConfig(hidden_sizes=(64, 128, 320, 512),
+                              depths=(3, 8, 27, 3), decoder_hidden_size=768),
+}
+SEGFORMER_BATCH = {"mit-b0": 32, "mit-b4": 8}
+SEGFORMER_SEED, SEGFORMER_CLASSIFIER_SCALE = 0, 8.0
+SEGFORMER_INPUT = 512
+# the card-vs-CPU check of the b0 forward: batch, logit tolerance, and the
+# least share of pixels whose argmax must agree
+SEGFORMER_PARITY = (8, 1e-3, 0.999)
+# the staged GTCS chain's data tree: site and date of its layout
+GTCS_SITE, GTCS_DATE = "01_Todai", "20260101"
 
 
 def check(ok: bool, message: str) -> None:
@@ -624,7 +678,7 @@ def trace(fn) -> dict:
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "groups_ms": groups,
+            "groups_ms": groups, "ops_ms": ops,
             "top": [[name[:90], ms, count] for name, (ms, count) in top],
             "top_ops": [[name, ms, count] for name, (ms, count) in top_ops]}
 
@@ -2126,6 +2180,448 @@ def serve_phase(e2e: dict, ckpt_dir: Path, model_dir: Path,
     return {"launches": launches, "wall": wall}
 
 
+# ---------------- the SegFormer/GTCS model family ----------------
+# operator -> group of the traced SegFormer batch (the kernels carry
+# library names, so the operator that launched each one names its group)
+SEGFORMER_OP_GROUPS = (
+    ("attention matmuls (q.k^T, .v)", ("aten::bmm",)),
+    ("linear layers (matmuls)", ("aten::addmm", "aten::mm")),
+    ("softmax", ("aten::_softmax",)),
+    ("LayerNorm", ("aten::native_layer_norm",)),
+    ("convolutions", ("conv",)),
+    ("GELU", ("aten::gelu",)),
+)
+
+
+def segformer_groups(prof: dict) -> dict:
+    """Device ms of a traced SegFormer run by ``SEGFORMER_OP_GROUPS``; the
+    rest is other elementwise work (residual adds, casts, copies, the
+    head's upsample and BatchNorm, the normalisation)."""
+    groups = {}
+    for op, (ms, _) in prof["ops_ms"].items():
+        group = next((g for g, keys in SEGFORMER_OP_GROUPS
+                      if any(k in op for k in keys)),
+                     "other elementwise (adds, casts, copies, upsample, BN)")
+        groups[group] = groups.get(group, 0.0) + ms
+    return groups
+
+
+def segformer_model_phase(name_power: str, device="cuda") -> dict:
+    """Seeded port-initialised SegFormer weights at mit-b0 and mit-b4,
+    written as the trainer's ``flax_model.pth`` and read back (both
+    geometries recovered by ``config_from_state_dict``); the b0 forward on
+    the card against the same module on the CPU in float32 (TF32 off); ms
+    per batch by CUDA events, crops/s, TFLOP/s and peak memory for b0 at
+    batch 32 and b4 at batch 8 in float32 and bf16, the bf16-vs-f32 argmax
+    agreement, and a traced b0 batch by operator group.  Returns the
+    checkpoints' directories and the b4 state dict."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    # the SegFormer modules import cv2 and PIL, as the JAX package's do
+    from glomeruli_segmentation_tpu_torch.pipeline import (
+        fused_segformer as fused_segformer_module,
+    )
+
+    root = WORK / "segformer"
+    shutil.rmtree(root, ignore_errors=True)
+    models = {}
+    for name, cfg in SEGFORMER_CONFIGS.items():
+        sd = random_segformer_state_dict(cfg, SEGFORMER_SEED,
+                                         SEGFORMER_CLASSIFIER_SCALE)
+        (root / name).mkdir(parents=True)
+        save_flax_checkpoint(sd, str(root / name / "flax_model.pth"),
+                             cfg.num_labels)
+        loaded, labels = fused_segformer_module.load_segformer_checkpoint(
+            str(root / name))
+        check(config_from_state_dict(loaded) == cfg and labels == 5,
+              f"SegFormer {name}: the written checkpoint gives "
+              f"{config_from_state_dict(loaded)}, {labels} labels")
+        check(loaded.keys() == sd.keys()
+              and all(torch.equal(loaded[k], sd[k]) for k in sd),
+              f"SegFormer {name}: the written checkpoint's tensors differ")
+        models[name] = {"sd": loaded, "dir": root / name, "params": sum(
+            v.numel() for k, v in loaded.items()
+            if not k.endswith("num_batches_tracked"))}
+    print("SegFormer checkpoints (flax_model.pth, the trainer's format, "
+          "read back by load_segformer_checkpoint): " + ", ".join(
+              f"{name} {m['params'] / 1e6:.3f} M parameters, geometry "
+              f"recovered" for name, m in models.items())
+          + f" | {name_power}", flush=True)
+
+    # ---- the b0 forward: card against CPU, float32 ----
+    batch, atol, min_agree = SEGFORMER_PARITY
+    cfg0, sd0 = SEGFORMER_CONFIGS["mit-b0"], models["mit-b0"]["sd"]
+    x = torch.randn(batch, SEGFORMER_INPUT, SEGFORMER_INPUT, 3,
+                    generator=torch.Generator().manual_seed(1))
+    cpu_model = Segformer(cfg0).eval()
+    cpu_model.load_state_dict(sd0, strict=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu_model(x)
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    card_model = Segformer(cfg0)
+    card_model.load_state_dict(sd0, strict=True)
+    card_model.to(device).eval()
+    with torch.no_grad(), tf32(False, False):
+        got = card_model(x.to(device)).cpu()
+    err = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"SegFormer mit-b0 f32 (TF32 off) {tuple(x.shape)}: card against "
+          f"CPU max abs logit diff {err:.3e} (tolerance {atol}), argmax "
+          f"agreement {agree:.6f} (at least {min_agree}); largest |logit| "
+          f"{float(want.abs().max()):.3f}; classes "
+          f"{torch.bincount(want.argmax(-1).flatten(), minlength=5).tolist()}"
+          f"; CPU forward {cpu_s:.2f} s | {name_power}", flush=True)
+    check(err <= atol and agree >= min_agree,
+          f"SegFormer mit-b0: card and CPU disagree ({err}, {agree})")
+    del card_model, x, got, want
+
+    # ---- ms per batch, crops/s, TFLOP/s, peak memory ----
+    timings = {}
+    for name, cfg in SEGFORMER_CONFIGS.items():
+        n = SEGFORMER_BATCH[name]
+        xb = torch.randn(n, SEGFORMER_INPUT, SEGFORMER_INPUT, 3,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(2), device=device)
+        argmax = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = Segformer(cfg, dtype=dtype)
+            model.load_state_dict(models[name]["sd"], strict=True)
+            model.to(device).eval()
+            with torch.no_grad(), tf32(False, False):
+                with FlopCounterMode(display=False) as counter:
+                    model(xb[:1])
+                flop = counter.get_total_flops()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: model(xb), iters=5, warmup=2)
+                argmax[dtype] = model(xb).argmax(-1)
+                if name == "mit-b0" and dtype == torch.float32:
+                    prof = trace(lambda: model(xb))
+            timings[(name, dtype)] = {
+                "ms": ms, "crops_s": n / ms * 1e3, "gflop": flop / 1e9,
+                "tflops": flop * n / ms / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del model
+        timings[(name, "agree")] = float(
+            (argmax[torch.float32] == argmax[torch.bfloat16]).float().mean())
+        del xb, argmax
+    for name in SEGFORMER_CONFIGS:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = timings[(name, dtype)]
+            print(f"SegFormer {name} {str(dtype)[6:]} batch "
+                  f"{SEGFORMER_BATCH[name]} at {SEGFORMER_INPUT}x"
+                  f"{SEGFORMER_INPUT}: {t['ms']:.3f} ms per batch (CUDA "
+                  f"events, 5 launches), {t['crops_s']:.1f} crops/s, "
+                  f"{t['gflop']:.2f} GFLOP per crop (matmuls and convs, "
+                  f"torch's flop counter), {t['tflops']:.1f} TFLOP/s, peak "
+                  f"memory {t['peak_gb']:.3f} GB | {name_power}", flush=True)
+        print(f"SegFormer {name}: bf16 and f32 argmax agree on "
+              f"{timings[(name, 'agree')]:.6f} of pixels | {name_power}",
+              flush=True)
+    groups = segformer_groups(prof)
+    print(f"profile SegFormer mit-b0 f32 batch {SEGFORMER_BATCH['mit-b0']} "
+          f"(traced run): wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}; by operator group (ms): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in
+              sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f" | {name_power}", flush=True)
+    for kname, ms, count in prof["top"]:
+        print(f"  {ms:9.2f} ms {count:6d}x  {kname}")
+    return {"b0_dir": models["mit-b0"]["dir"],
+            "b4_sd": models["mit-b4"]["sd"], "timings": timings,
+            "groups": groups}
+
+
+def segformer_e2e_phase(e2e: dict, model_dir: Path, b0_dir: Path,
+                        name_power: str) -> dict:
+    """``gseg-e2e --segformer_checkpoint`` (``cli/e2e.main``) with the
+    mit-b0 checkpoint directory, the e2e phase's OD-API detector (its model
+    directory) and slide: once with ``--no_json`` (the device gather) and
+    once at the default (mode-'L' label PNGs through ``on_crop``), the
+    K1, K2 and K3 counts set to 0 before and read after each.  Checks the
+    launches, the PNGs, the two canvases against each other, the merged
+    CSV against the e2e phase's and the overlay; prints s/slide, host spans
+    and peak memory.  Returns the launches of the ``--no_json`` run."""
+    import cv2
+    from PIL import Image
+
+    from glomeruli_segmentation_tpu_torch.pipeline import (
+        fused_segformer as fused_segformer_module,
+    )
+
+    root = WORK / "segformer_e2e"
+    shutil.rmtree(root, ignore_errors=True)
+    pid = E2E_JOBS[0]
+    slide_dir = root / "data" / "02_PAS" / pid
+    slide_dir.mkdir(parents=True)
+    (slide_dir / e2e["slide"].name).symlink_to(e2e["slide"])
+    targets = root / "targets.txt"
+    targets.write_text(f"{pid}/{e2e['slide'].name}\n")
+    want_csv = "".join(r for r in e2e["merged_csv"].read_text()
+                       .splitlines(True) if r.split(",")[1] == pid)
+    seg_cls = fused_segformer_module.SegformerSlideSegmenter
+    segment_slide, canvases = seg_cls.segment_slide, []
+
+    def keeping_segment(self, *a, **kw):
+        canvas = segment_slide(self, *a, **kw)
+        canvases.append(canvas)
+        return canvas
+
+    spans = HostSpans()
+    spans.wrap(Slide, "read_region_array", read_label)
+    spans.wrap(cv2, "resize", lambda src, dsize, *a, **k: (
+        "crop resizes (cv2, uint8)" if tuple(dsize) == (
+            SEGFORMER_INPUT, SEGFORMER_INPUT) else "other cv2 resizes"))
+    spans.wrap(seg_cls, "predict_full", "full-res maps (numpy upsample, "
+               "argmax)")
+    spans.wrap(Image.Image, "save", "PNG writes")
+    spans.wrap(fused_segformer_module, "read_host", "result reads (wait)")
+    spans.wrap(FusedEndToEnd, "_write_overlay", "overlay (reads, blend, JPG)")
+    seg_cls.segment_slide = keeping_segment
+    runs = {}
+    try:
+        for name, extra in (("no_json", ["--no_json"]), ("png", [])):
+            out = root / name
+            spans.take()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            esp_block_fused.launches = esp_block_padded.launches = 0
+            nms.launches = 0
+            t0 = time.perf_counter()
+            e2e_cli.main(["--model", str(model_dir), "--target_list",
+                          str(targets), "--data_dir", str(root / "data"),
+                          "--output_dir", str(out), "--segformer_checkpoint",
+                          str(b0_dir), *extra])
+            torch.cuda.synchronize()
+            runs[name] = {"out": out, "wall": time.perf_counter() - t0,
+                          "launches": (esp_block_fused.launches,
+                                       esp_block_padded.launches,
+                                       nms.launches),
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "spans": spans.take(), "log": log_rows(out)}
+    finally:
+        seg_cls.segment_slide = segment_slide
+        spans.restore()
+
+    # ---- what came out ----
+    want_k3 = 2 * math.ceil(e2e["n_windows"] / DET_BATCH)
+    for name, r in runs.items():
+        check(r["launches"] == (0, 0, want_k3), f"SegFormer e2e {name}: "
+              f"(K1, K2, K3) launches {r['launches']}, want (0, 0, "
+              f"{want_k3})")
+        got_csv = (r["out"] / "OPT_PAS_GlomusMergedList_.csv").read_text()
+        check(got_csv == want_csv, f"SegFormer e2e {name}: the merged CSV "
+              f"differs from the ESPNet e2e phase's")
+        check((r["out"] / f"{pid}_pred.jpg").is_file(),
+              f"SegFormer e2e {name}: no overlay")
+    rows = [ln.split(",") for ln in want_csv.splitlines()]
+    pngs = sorted((runs["png"]["out"] / "json" / pid).glob("*.PNG"))
+    check(len(pngs) == len(rows), f"SegFormer e2e: {len(pngs)} PNGs for "
+          f"{len(rows)} merged boxes")
+    for r in rows:
+        x1, y1, x2, y2 = (int(v) for v in r[3:7])
+        path = (runs["png"]["out"] / "json" / pid /
+                f"xmin{x1 // 8}_ymin{y1 // 8}_xmax{x2 // 8}_ymax{y2 // 8}"
+                f".PNG")
+        with Image.open(path) as im:
+            check(im.mode == "L" and im.size == (x2 - x1, y2 - y1)
+                  and int(np.asarray(im).max()) < 5,
+                  f"SegFormer e2e: {path.name} is {im.mode} {im.size}")
+    check(len(canvases) == 2 and np.array_equal(canvases[0], canvases[1]),
+          "SegFormer e2e: the device-gather and on_crop canvases differ")
+    classes = np.bincount(canvases[0].ravel(), minlength=5).tolist()
+    print(f"SegFormer e2e (gseg-e2e --segformer_checkpoint, mit-b0 at the "
+          f"CLI's defaults: input {SEGFORMER_INPUT}, crop batch 32, f32 with "
+          f"TF32 off; the e2e phase's OD-API detector and slide): "
+          f"{len(rows)} merged boxes, the merged CSV equal to the ESPNet e2e "
+          f"phase's; {len(pngs)} mode-L label PNGs of the boxes' sizes; the "
+          f"--no_json (device gather) and PNG (host upsample) canvases "
+          f"byte-identical, class pixel counts {classes} | {name_power}",
+          flush=True)
+    for name, r in runs.items():
+        _, sec, detect_s = r["log"][0]
+        print(f"SegFormer e2e {name}: {sec:.3f} s/slide (timing log; detect "
+              f"{detect_s:.3f}), main {r['wall']:.3f} s with the loads; "
+              f"(K1, K2, K3) launches {r['launches']}; peak memory "
+              f"{r['peak_gb']:.3f} GB | {name_power}", flush=True)
+        print("  host spans (s, calls, summed over threads): " + "; ".join(
+            f"{k} {v[0]:.3f}/{v[1]}" for k, v in
+            sorted(r["spans"].items(), key=lambda kv: -kv[1][0])),
+            flush=True)
+    return {"launches": runs["no_json"]["launches"],
+            "secs": {n: r["log"][0][1] for n, r in runs.items()}}
+
+
+def staged_gtcs_phase(b4_sd: dict, name_power: str) -> dict:
+    """The staged GTCS chain on the staged segment phase's GT slide
+    (``staged_segment_tree``): crops over the 20 um margin frame under
+    ``rgb/<specimen>/`` and GTCS label PNGs (glomerulus, its tuft) under
+    ``label/gtcs/<specimen>/`` as the JAX package's fixture lays them out,
+    a merged CSV of the GT boxes, and a training directory with two mit-b4
+    checkpoints and a ``log.txt``; then ``gseg-segformer-test --save_image
+    1``, ``gseg-eval-wsi-gtcs --evaluate`` on its ``seg/`` and, as a
+    control, on the GT labels.  Checks the checkpoint chosen, the rows,
+    the pixel counts, a finite mIoU, the TSV's total row and the control's
+    accuracy."""
+    import cv2
+
+    from glomeruli_segmentation_tpu_torch.cli import (
+        eval_wsi_gtcs as gtcs_eval_cli,
+        segformer_test as gtcs_test_cli,
+    )
+    from glomeruli_segmentation_tpu_torch.pipeline import (
+        fused_segformer as fused_segformer_module,
+        segformer_test as gtcs_test_module,
+    )
+
+    root = WORK / "staged_gtcs"
+    shutil.rmtree(root, ignore_errors=True)
+    stage_s = {}
+    t0 = time.perf_counter()
+    tree = staged_segment_tree(root)
+    stage_s["slide, XML, GT JSONs"] = time.perf_counter() - t0
+    pid = SEG_PATIENT
+    margin = int(round(20.0 / DET_MPP))       # the evaluator's MARGIN_UM
+    data = root / "gtcs" / GTCS_SITE / GTCS_DATE
+    rgb, labels = data / "rgb" / pid, data / "label" / "gtcs" / pid
+    rgb.mkdir(parents=True)
+    labels.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rows, areas = [], {}
+    with Slide(str(root / "data" / "02_PAS" / pid / f"{pid}.tiff")) as slide:
+        for (x1, y1, x2, y2), r in zip(tree["gt_boxes"], tree["radii"]):
+            fw, fh = x2 - x1 + 2 * margin, y2 - y1 + 2 * margin
+            crop = slide.read_region_array((x1 - margin, y1 - margin), 0,
+                                           (fw, fh))
+            name = f"xmin{x1}_ymin{y1}_xmax{x2}_ymax{y2}.PNG"
+            cv2.imwrite(str(rgb / name), crop[:, :, ::-1])
+            yy, xx = np.mgrid[:fh, :fw]
+            d2 = ((yy - (fh - 1) / 2) ** 2 + (xx - (fw - 1) / 2) ** 2)
+            label = np.zeros((fh, fw), np.uint8)
+            label[d2 < r * r] = 1                      # glomerulus
+            label[d2 < (r // 2) ** 2] = 2              # tuft
+            lblsave(str(labels / name), label)
+            areas[name] = fw * fh
+            rows.append(f'"S","{pid}","{pid}.tiff",{x1},{y1},{x2},{y2},0.97')
+    merged_csv = root / "merged.csv"
+    merged_csv.write_text("\n".join(rows) + "\n")
+    stage_s["crops and GTCS labels"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run = root / "models" / GTCS_SITE / "segformer" / "b4" / "fold1"
+    cfg4 = SEGFORMER_CONFIGS["mit-b4"]
+    for n, sd in ((1, b4_sd), (2, random_segformer_state_dict(
+            cfg4, SEGFORMER_SEED + 1, SEGFORMER_CLASSIFIER_SCALE))):
+        (run / f"checkpoint-{n}").mkdir(parents=True)
+        save_flax_checkpoint(sd, str(run / f"checkpoint-{n}" /
+                                     "flax_model.pth"), cfg4.num_labels)
+    # the best eval_mean_iou is not the last epoch's: checkpoint-1
+    (run / "log.txt").write_text("{'eval_mean_iou': 0.31, 'epoch': 1}\n"
+                                 "{'eval_mean_iou': 0.29, 'epoch': 2}\n")
+    stage_s["checkpoints"] = time.perf_counter() - t0
+
+    loaded = []
+    load = fused_segformer_module.load_segformer_checkpoint
+
+    def recording_load(path):
+        loaded.append(path)
+        return load(path)
+
+    spans = HostSpans()
+    spans.wrap(gtcs_test_module.ResizedGlomerularDataset, "get",
+               "crop reads and feature_extract (PNG, cv2, normalise)")
+    spans.wrap(gtcs_test_module, "mean_iou", "per-crop mean_iou")
+    spans.wrap(gtcs_test_module, "save_triptych", "triptychs and seg PNGs")
+    fused_segformer_module.load_segformer_checkpoint = recording_load
+    report = root / "report"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        gtcs_test_cli.main([
+            "--fold", "1", "--target_site", GTCS_SITE, "--model_site",
+            GTCS_SITE, "--data_date", GTCS_DATE, "--model_base_path",
+            str(root / "models"), "--pretrained_model", "segformer/b4",
+            "--report_root_path", str(report), "--data_root",
+            str(root / "gtcs"), "--save_image", "1"])
+    finally:
+        fused_segformer_module.load_segformer_checkpoint = load
+        spans.restore()
+    torch.cuda.synchronize()
+    stage_s["gseg-segformer-test"] = time.perf_counter() - t0
+    test_spans = spans.take()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(len(loaded) == 1 and Path(loaded[0]).parent.name == "checkpoint-1"
+          and gtcs_test_module.search_best_checkpoint(str(run))
+          == "checkpoint-1", f"staged GTCS: loaded {loaded}, want the "
+          f"checkpoint-1 that log.txt names")
+    out = report / GTCS_SITE / GTCS_SITE / GTCS_DATE / "segformer" / "b4" \
+        / "fold1"
+    pixel_rows = (out / "pred_summary_pixel.csv").read_text().splitlines()
+    check(len(pixel_rows) == len(rows) + 1, f"staged GTCS: "
+          f"{len(pixel_rows) - 1} pixel rows for {len(rows)} crops")
+    for line in pixel_rows[1:]:
+        cells = line.split(",")
+        check(float(cells[2]) + float(cells[3]) == areas[cells[1]],
+              f"staged GTCS: {cells[1]}'s pixel counts do not sum to its "
+              f"area {areas[cells[1]]}")
+    report_rows = dict(ln.split(",")[:2] for ln in
+                       (out / "summary_report.csv").read_text().splitlines())
+    miou = float(report_rows["overall_mean_iou"])
+    check(math.isfinite(miou), f"staged GTCS: overall_mean_iou {miou}")
+    segs = sorted((out / "seg" / pid).glob("*.PNG"))
+    triptychs = sorted((out / pid).glob("*.PNG"))
+    check(len(segs) == len(triptychs) == len(rows),
+          f"staged GTCS: {len(segs)} seg PNGs, {len(triptychs)} triptychs")
+
+    totals = {}
+    for name, pred_dir in (("prediction", out / "seg"),
+                           ("control", data / "label" / "gtcs")):
+        t0 = time.perf_counter()
+        gtcs_eval_cli.main([
+            "--staining", "OPT_PAS", "--merged_detection_result_csv",
+            str(merged_csv), "--target_list", str(root / "targets.txt"),
+            "--wsi_dir", str(root / "data" / "02_PAS"),
+            "--seg_pred_image_dir", str(pred_dir), "--seg_gt_image_dir",
+            str(data / "label" / "gtcs"), "--output_dir",
+            str(root / f"eval_{name}"), "--evaluate"])
+        stage_s[f"gseg-eval-wsi-gtcs ({name})"] = time.perf_counter() - t0
+        text = (root / f"eval_{name}" / "seg_data_output.tsv").read_text() \
+            .split("\n")
+        total = text[-1].split("\t")
+        check(len(text) == 2 and text[0].startswith(pid + "\t")
+              and total[0] == "total" and len(total) == 7,
+              f"staged GTCS eval ({name}): TSV {text}")
+        totals[name] = total
+    control_acc = float(totals["control"][1])
+    check(control_acc > 0.999, f"staged GTCS: the control's accuracy "
+                               f"{control_acc}")
+    print(f"staged GTCS (gseg-segformer-test --save_image 1 at the command's "
+          f"defaults: batch 2, input {SEGFORMER_INPUT}, f32 with TF32 off; "
+          f"mit-b4, checkpoint-1 of 2 chosen from log.txt; then "
+          f"gseg-eval-wsi-gtcs --evaluate, window 2400): {len(rows)} crops "
+          f"(frames of {min(areas.values())} to {max(areas.values())} "
+          f"px), "
+          f"{len(pixel_rows) - 1} pixel rows summing to each label's area, "
+          f"overall_mean_iou {miou:.6f} (random weights); TSV total "
+          f"(accuracy, mIoU, mDice) prediction {totals['prediction'][1]}, "
+          f"{totals['prediction'][4]}, {totals['prediction'][6]}; control "
+          f"(GT as the prediction) accuracy {control_acc:.6f}; peak memory "
+          f"{peak_gb:.3f} GB | {name_power}", flush=True)
+    print("staged GTCS stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_s.items()) + f" | {name_power}",
+        flush=True)
+    print("  gseg-segformer-test host spans (s, calls): " + "; ".join(
+        f"{k} {v[0]:.3f}/{v[1]}" for k, v in
+        sorted(test_spans.items(), key=lambda kv: -kv[1][0])), flush=True)
+    return {"stage_s": stage_s, "miou": miou, "control_acc": control_acc}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2343,6 +2839,13 @@ def main() -> int:
     phase_done("warm-up")
     served = serve_phase(e2e, WORK / "folds", model_dir, name_power)
     phase_done("serve")
+    segformer = segformer_model_phase(name_power)
+    phase_done("SegFormer model")
+    segformer_e2e = segformer_e2e_phase(e2e, model_dir, segformer["b0_dir"],
+                                        name_power)
+    phase_done("SegFormer e2e")
+    staged_gtcs_phase(segformer["b4_sd"], name_power)
+    phase_done("staged GTCS")
     print("chip_smoke phases (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f} | {name_power}", flush=True)
@@ -2385,6 +2888,7 @@ def main() -> int:
                   "esp_block.py:72 (_esp_kernel)", k1, launches,
                   e2e_launches=e2e["launches"][0],
                   serve_launches=served["launches"][0],
+                  segformer_e2e_launches=segformer_e2e["launches"][0],
                   staged_segment_launches=staged["launches"],
                   staged_segment_f32={k: staged["k1"][k] for k in (
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2393,12 +2897,14 @@ def main() -> int:
                   "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches,
                   composed_ms=k2_composed_ms,
                   e2e_launches=e2e["launches"][1],
-                  serve_launches=served["launches"][1]),
+                  serve_launches=served["launches"][1],
+                  segformer_e2e_launches=segformer_e2e["launches"][1]),
         nms_entry("ResNet-50-C4 detector", k3, "rpn seeded", det_launches),
         dict(nms_entry("OD-API frozen-graph detector", od_k3,
                        "od_api rpn proposals", od_launches),
              e2e_launches=e2e["launches"][2],
-             serve_launches=served["launches"][2]),
+             serve_launches=served["launches"][2],
+             segformer_e2e_launches=segformer_e2e["launches"][2]),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,18 @@ stitch in one process) on the GPU.
 
     python -m glomeruli_segmentation_tpu_torch.cli.e2e --model DIR \
         --target_list LIST --data_dir DIR --segmentation_weights_dir DIR
+    python -m glomeruli_segmentation_tpu_torch.cli.e2e --model DIR \
+        --target_list LIST --data_dir DIR --segformer_checkpoint CKPT
 
 Counterpart of ``glomeruli_segmentation_tpu/cli/e2e.py`` (``gseg-e2e``),
 with the same flags and defaults: per slide it emits the merged-detection
-CSV, the timing log, the per-crop labelme JSONs and the stitched
-``{patient}_pred.jpg``.  Flags whose machinery is not ported raise
-``SystemExit`` naming themselves when set to anything but their default:
-``--mesh auto`` on more than one card, ``--data_parallel``,
-``--fold_parallel``, ``--segformer_checkpoint``, ``--host_resize``,
-``--pack_output`` and ``--engine xla``.
+CSV, the timing log, the per-crop labelme JSONs (with
+``--segformer_checkpoint``, the GTCS model family's mode-'L' label PNGs)
+and the stitched ``{patient}_pred.jpg``.  Flags whose machinery is not
+ported raise ``SystemExit`` naming themselves when set to anything but
+their default: ``--mesh auto`` on more than one card, ``--data_parallel``,
+``--fold_parallel``, ``--host_resize``, ``--pack_output`` and ``--engine
+xla``.
 """
 import argparse
 import os
@@ -31,12 +34,20 @@ def build_parser() -> argparse.ArgumentParser:
                         default="OPT_PAS")
     parser.add_argument("--output_dir", type=str, default="./output")
     parser.add_argument("--segmentation_weights_dir", type=str, default=None,
-                        help="directory holding espnet_fold{1..5}.pth")
+                        help="directory holding espnet_fold{1..5}.pth "
+                             "(required unless --segformer_checkpoint)")
     parser.add_argument("--folds", type=int, nargs="*", default=[1, 2, 3, 4, 5])
     parser.add_argument("--segformer_checkpoint", type=str, default=None,
-                        help="the SegFormer/GTCS model family: not ported")
+                        help="run the SegFormer/GTCS model family instead "
+                             "of the 5-fold ESPNet ensemble: a "
+                             "flax_model.pth, a checkpoint-N dir, or a "
+                             "training output dir (best checkpoint found "
+                             "via log.txt); per-crop artifacts become the "
+                             "GTCS label PNGs (mode-'L' grayscale) and the "
+                             "overlay uses the GTCS palette")
     parser.add_argument("--num_labels", type=int, default=None,
-                        help="GTCS class count (SegFormer path)")
+                        help="GTCS class count (SegFormer path; default: "
+                             "recorded in the checkpoint)")
     parser.add_argument("--input_size", type=int, default=512,
                         help="SegFormer input resolution")
     parser.add_argument("--json_dir", type=str, default=None,
@@ -113,12 +124,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise ``SystemExit`` naming every flag set to a value whose
-    machinery the port does not have."""
+    """Raise ``SystemExit`` naming the ESPNet-only flags set beside
+    ``--segformer_checkpoint`` (the JAX package's message), then naming
+    every flag set to a value whose machinery the port does not have."""
+    if args.segformer_checkpoint:
+        # the ESPNet-ensemble-only flags have no effect on the SegFormer
+        # path: name the conflicting ones instead of ignoring them
+        ignored = [name for name, val, default in (
+            ("--segmentation_weights_dir", args.segmentation_weights_dir,
+             None),
+            ("--folds", tuple(args.folds), (1, 2, 3, 4, 5)),
+            ("--engine", args.engine, "auto"),
+            ("--precision", args.precision, "default"),
+            ("--transfer", args.transfer, "auto"),
+            ("--host_resize", args.host_resize, False),
+            ("--pack_output", args.pack_output, False),
+            ("--fold_parallel", args.fold_parallel, 0),
+        ) if val != default]
+        if ignored:
+            raise SystemExit(
+                "these flags apply only to the 5-fold ESPNet ensemble "
+                "and conflict with --segformer_checkpoint: "
+                + ", ".join(ignored))
     unported = [name for name, val, default in (
         ("--data_parallel", args.data_parallel, 0),
         ("--fold_parallel", args.fold_parallel, 0),
-        ("--segformer_checkpoint", args.segformer_checkpoint, None),
         ("--host_resize", args.host_resize, False),
         ("--pack_output", args.pack_output, False),
     ) if val != default]
@@ -160,14 +190,36 @@ def resolve_slide_pipeline(args) -> bool:
 
 
 def build_pipeline(args, backend, device="cuda"):
-    """Flags -> :class:`..pipeline.e2e.FusedEndToEnd` with the 5-fold
-    ESPNet ensemble on ``device``."""
+    """Flags -> :class:`..pipeline.e2e.FusedEndToEnd` on ``device`` for
+    either model family: the 5-fold ESPNet ensemble, or SegFormer/GTCS with
+    ``--segformer_checkpoint``.  Shared with ``gseg-serve``."""
     from ..pipeline.e2e import FusedEndToEnd
     from ..pipeline.fused import EnsembleConfig, EnsembleSegmenter
 
     check_ported(args)
+    if args.segformer_checkpoint:
+        from ..palette import GTCS_PALETTE
+        from ..pipeline.fused_segformer import (SegformerSlideConfig,
+                                                SegformerSlideSegmenter,
+                                                load_segformer_checkpoint)
+
+        state_dict, ckpt_labels = load_segformer_checkpoint(
+            args.segformer_checkpoint)
+        segmenter = SegformerSlideSegmenter(
+            state_dict, SegformerSlideConfig(
+                num_labels=args.num_labels or ckpt_labels,
+                input_size=args.input_size,
+                batch_size=args.seg_batch_size), device=device)
+        return FusedEndToEnd(
+            backend, data_category=args.data_category,
+            window_size=args.window_size, overlap_ratio=args.overlap_ratio,
+            detect_conf=args.conf_threshold,
+            merge_conf=args.merge_conf_threshold,
+            merge_overlap=args.merge_overlap_threshold,
+            segmenter=segmenter, palette=GTCS_PALETTE, crop_artifact="png")
     if not args.segmentation_weights_dir:
-        raise SystemExit("--segmentation_weights_dir is required")
+        raise SystemExit("--segmentation_weights_dir is required "
+                         "unless --segformer_checkpoint is given")
     ckpts = [os.path.join(args.segmentation_weights_dir,
                           f"espnet_fold{k}.pth") for k in args.folds]
     ensemble = EnsembleSegmenter(

@@ -1,7 +1,7 @@
-"""Bilinear window resizes of the frozen-graph detector backend.
+"""Bilinear resizes of the frozen-graph detector backend and of the
+SegFormer logits.
 
-Counterpart of the detector's part of ``glomeruli_segmentation_tpu/ops/
-resize.py``:
+Counterpart of ``glomeruli_segmentation_tpu/ops/resize.py``:
 
 - :func:`resize_bilinear_tf1_np`, the host (numpy) TF1 ``resize_bilinear``
   (align_corners=False: ``src = dst * src/dst``, no half-pixel shift), the
@@ -12,6 +12,10 @@ resize.py``:
   a (B, H, W, C) batch on the device.  The sample tables are computed on
   the batch's device in float64, as numpy computes them, so a call copies
   nothing from the host.  Rows are blended first, then columns, in float32.
+- :func:`_linear_weights` and :func:`resize_bilinear_np`, verbatim copies
+  of the JAX module's cv2-INTER_LINEAR tables and their host (numpy) twin:
+  the SegFormer slide path samples its logits with those tables, and its
+  per-crop path upsamples them on the host.
 """
 from __future__ import annotations
 
@@ -45,6 +49,34 @@ def resize_bilinear_tf1_np(img: np.ndarray, out_h: int,
         wx = wx[None, :]
     rows = img[ylo] * (1.0 - wy) + img[yhi] * wy
     return rows[:, xlo] * (1.0 - wx) + rows[:, xhi] * wx
+
+
+def _linear_weights(src_size: int, dst_size: int):
+    """cv2 INTER_LINEAR (half-pixel) taps of one axis: lo, hi, weight."""
+    scale = src_size / dst_size
+    x = (np.arange(dst_size, dtype=np.float64) + 0.5) * scale - 0.5
+    x = np.clip(x, 0.0, src_size - 1.0)
+    lo = np.floor(x).astype(np.int32)
+    hi = np.minimum(lo + 1, src_size - 1)
+    w = (x - lo).astype(np.float32)
+    return lo, hi, w
+
+
+def resize_bilinear_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Host (numpy) twin of :func:`resize_bilinear` for one HWC or HW image:
+    the same half-pixel taps and the same float32 blend, rows then
+    columns, so the two agree bit for bit."""
+    img = np.asarray(img, np.float32)
+    ylo, yhi, wy = _linear_weights(img.shape[0], out_h)
+    xlo, xhi, wx = _linear_weights(img.shape[1], out_w)
+    if img.ndim == 3:
+        wy = wy[:, None, None]
+        wx = wx[None, :, None]
+    else:
+        wy = wy[:, None]
+        wx = wx[None, :]
+    rows = img[ylo] * (np.float32(1.0) - wy) + img[yhi] * wy
+    return rows[:, xlo] * (np.float32(1.0) - wx) + rows[:, xhi] * wx
 
 
 def _taps(src_size: int, dst_size: int, half_pixel: bool,

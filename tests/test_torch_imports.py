@@ -39,5 +39,9 @@ def test_port_and_chip_smoke_import_without_jax():
     # slice's (pipeline/serve, cli/serve, cli/warmup, cli/merge,
     # cli/make_target_list) and the staged segment-and-evaluate chain's
     # (utils/annotation, utils/timing, eval/iou_eval, pipeline/eval_wsi,
-    # cli/make_seg_data, cli/segment, cli/eval_wsi)
-    assert count >= 53, proc.stdout
+    # cli/make_seg_data, cli/segment, cli/eval_wsi) and the SegFormer/GTCS
+    # family's (data, data/segformer_dataset, models/segformer,
+    # convert/segformer_import, eval/mean_iou, pipeline/fused_segformer,
+    # pipeline/segformer_test, pipeline/eval_wsi_gtcs, cli/segformer_test,
+    # cli/eval_wsi_gtcs)
+    assert count >= 63, proc.stdout
