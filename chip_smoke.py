@@ -5,7 +5,9 @@
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions and both TF32 switches;
 2. builds every kernel of the port from ``glomeruli_segmentation_tpu_torch/
-   csrc`` (one ``nvcc`` per source, all at once) into build/torch_kernels/;
+   csrc`` (one ``nvcc`` per source, all at once) into build/torch_kernels/,
+   and the native slide reader (``wsi/native/ndpi_reader.cc``, ``g++``)
+   into build/native_reader/, with which every phase opens its slides;
 3. holds K1 (the fused ESP block) and K2 (the ESP block on the padded
    layout over the packed engine's 5 folds, with zero halo columns and pad
    channels checked) against their plain PyTorch versions at the main
@@ -58,7 +60,9 @@
    detector on ``random_od_api_consts(E2E_DETECTOR_SEED)`` with the host
    TF1 resize, the packed ensemble at crop batch 32, bf16) over a
    35328x26496 pyramidal TIFF written by the port's ``wsi/synthetic.py``
-   and read by its ``open_slide``: two jobs pipelined and serial (merged
+   and read by its ``open_slide``, which must give the native reader (no
+   read of this or a later path goes through the Python reader): two jobs
+   pipelined and serial (merged
    CSV, labelme JSONs and overlays byte-identical, canvases background
    outside the boxes, at least one full crop batch), with the K1 and K3
    counts set to 0 before the pipelined run and read after it, the serial
@@ -122,18 +126,35 @@
     a finite mIoU) and ``gseg-eval-wsi-gtcs --evaluate`` on its ``seg/``
     and, as a control, on the GT labels (a 7-field total row; the
     control's accuracy above 0.999);
-16. prints one JSON line of kernel results (K3 once per detector, each with
+16. holds the native slide reader to the Python one on the main path's
+    crops at level 0 (every merged box of the e2e slide's first job, and
+    the GT slide's 32 glomerulus crops over their 20 um margin frames):
+    equal bytes for every crop, seconds and MP/s per reader, and for the
+    e2e crops a read from 4 threads with each reader;
+17. runs ``gseg-selftest`` (``cli/selftest.main``) on the e2e slide and the
+    e2e detector's constants written as a frozen graph with
+    ``tests/pb_graph_writer.py``, the K3 count set to 0 before and read
+    after: an ``ok`` verdict, the slide checked by both readers, the graph
+    parsed back to the detector's parameter count, K3 launched twice (one
+    window: (1, 6000 -> 300) and (1, 300 -> 100)), and K3 against its plain
+    version on that window's own two B = 1 problems; then checks that no
+    slide of the run was opened with the Python reader;
+18. prints one JSON line of kernel results (K3 once per detector, each with
     its launches in the e2e run and in the server run, the OD-API one also
-    in the SegFormer e2e run; K1 and K2 with their launches there too, 0;
-    K1 also with its launches in the staged fused segment run and its f32
-    case there) and, last, one JSON status line.
+    in the SegFormer e2e run and in ``gseg-selftest``, and the selftest
+    window's two cases among its ``cases``; K1 and K2 with their
+    launches there too, 0; K1 also with its launches in the staged fused
+    segment run and its f32 case there) and, last, one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -149,12 +170,14 @@ import numpy as np
 import torch
 
 from glomeruli_segmentation_tpu_torch import read_host, readback, tf32
+from glomeruli_segmentation_tpu_torch import wsi
 from glomeruli_segmentation_tpu_torch.cli import detect as detect_cli
 from glomeruli_segmentation_tpu_torch.cli import e2e as e2e_cli
 from glomeruli_segmentation_tpu_torch.cli import eval_wsi as eval_wsi_cli
 from glomeruli_segmentation_tpu_torch.cli import make_seg_data as seg_data_cli
 from glomeruli_segmentation_tpu_torch.cli import merge as merge_cli
 from glomeruli_segmentation_tpu_torch.cli import segment as segment_cli
+from glomeruli_segmentation_tpu_torch.cli import selftest as selftest_cli
 from glomeruli_segmentation_tpu_torch.cli import serve as serve_cli
 from glomeruli_segmentation_tpu_torch.cli.e2e import (
     build_parser,
@@ -222,11 +245,15 @@ from glomeruli_segmentation_tpu_torch.pipeline.fused import (
     EnsembleSegmenter,
     FusedSlideSegmenter,
 )
+from glomeruli_segmentation_tpu_torch.pipeline.selftest import _leaves
 from glomeruli_segmentation_tpu_torch.utils.labelme_io import (
     img_arr_to_b64,
     img_b64_to_arr,
     lblsave,
 )
+from glomeruli_segmentation_tpu_torch.wsi import native_reader
+from glomeruli_segmentation_tpu_torch.wsi.native import _build as reader_build
+from glomeruli_segmentation_tpu_torch.wsi.native_reader import NativeSlide
 from glomeruli_segmentation_tpu_torch.wsi.synthetic import (
     pas_like_image,
     write_pyramidal_tiff,
@@ -327,6 +354,10 @@ SEGFORMER_INPUT = 512
 SEGFORMER_PARITY = (8, 1e-3, 0.999)
 # the staged GTCS chain's data tree: site and date of its layout
 GTCS_SITE, GTCS_DATE = "01_Todai", "20260101"
+# the reader phase's concurrent read: threads, each with its own slide
+# object (the Python reader shares a file position), as in gseg-e2e, where
+# the detector, the crop producer and the overlay read at once
+READER_THREADS = 4
 
 
 def check(ok: bool, message: str) -> None:
@@ -1408,12 +1439,27 @@ class HostSpans:
         self.patched = []
 
 
-def read_label(slide, location, level, size):
-    if level == 0:
-        return "crop reads (level 0)"
-    if tuple(size) == (DET_WINDOW_PX, DET_WINDOW_PX):
-        return "window reads (level 3)"
-    return "overlay reads (level 3)"
+def read_label(reader: str):
+    """A span label for each region read of ``reader`` ("native" or
+    "python"): crops at level 0, detection windows and overlay reads."""
+    def label(slide, location, level, size):
+        if level == 0:
+            return f"crop reads (level 0, {reader})"
+        if tuple(size) == (DET_WINDOW_PX, DET_WINDOW_PX):
+            return f"window reads (level 3, {reader})"
+        return f"overlay reads (level 3, {reader})"
+    return label
+
+
+def wrap_slide_reads(spans: "HostSpans") -> None:
+    """Time the region reads of both slide readers, labelled by reader."""
+    spans.wrap(NativeSlide, "read_region_array", read_label("native"))
+    spans.wrap(Slide, "read_region_array", read_label("python"))
+
+
+def python_reads(spans: dict) -> list:
+    """The spans of a run's reads that went through the Python reader."""
+    return sorted(k for k in spans if k.endswith(", python)"))
 
 
 def e2e_slide(path: Path) -> float:
@@ -1470,11 +1516,15 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     path = root / "data" / "E2E.tiff"
     write_s = e2e_slide(path)
-    with Slide(str(path)) as s_:
+    # every command below opens it with wsi.open_slide: the native reader
+    with wsi.open_slide(str(path)) as s_:
+        check(isinstance(s_, NativeSlide), f"e2e: open_slide gave "
+              f"{type(s_).__name__}, not the native reader")
         width, height = s_.dimensions
         print(f"e2e slide: {path.stat().st_size / 1e6:.1f} MB written in "
               f"{write_s:.2f} s by wsi/synthetic.py ({E2E_COMPRESSION}, "
-              f"256-px tiles); level 0 {s_.dimensions}, "
+              f"256-px tiles), opened by wsi.open_slide as "
+              f"{type(s_).__name__}; level 0 {s_.dimensions}, "
               f"{s_.level_count} levels, downsamples "
               f"{[round(d) for d in s_.level_downsamples]}, mpp "
               f"{s_.properties['openslide.mpp-x']}, objective "
@@ -1482,8 +1532,8 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
               flush=True)
     jobs = [(str(path), pid) for pid in E2E_JOBS]
     t0 = time.perf_counter()
-    backend = ODAPIDetectorBackend(
-        consts=random_od_api_consts(E2E_DETECTOR_SEED), batch_size=DET_BATCH)
+    consts = random_od_api_consts(E2E_DETECTOR_SEED)
+    backend = ODAPIDetectorBackend(consts=consts, batch_size=DET_BATCH)
     print(f"e2e detector: ODAPIDetectorBackend on random_od_api_consts("
           f"{E2E_DETECTOR_SEED}), bf16, host TF1 resize, batch {DET_BATCH}; "
           f"built in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1501,7 +1551,7 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
           == (0.2, 0.9, 0.35), "the CLI defaults")
 
     spans = HostSpans()
-    spans.wrap(Slide, "read_region_array", read_label)
+    wrap_slide_reads(spans)
     spans.wrap(backend, "resize_host", "TF1 resize (detector)")
     spans.wrap(backend, "read_detections", "detection reads (wait)")
     spans.wrap(ens, "read_maps", "class-map reads (wait)")
@@ -1604,7 +1654,13 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
                         for r in rows])
     sides = np.asarray([(int(r[5]) - int(r[3]), int(r[6]) - int(r[4]))
                         for r in rows])
-    n_windows = main_run["spans"]["window reads (level 3)"][1] // len(jobs)
+    n_windows = main_run["spans"]["window reads (level 3, native)"][1] \
+        // len(jobs)
+    for label, r in (("pipelined", main_run), ("serial", serial),
+                     ("--no_json", no_json),
+                     ("--device_resize", device_resize)):
+        check(not python_reads(r["spans"]), f"e2e {label}: reads through "
+              f"the Python reader {python_reads(r['spans'])}")
     print(f"e2e slides: {n_windows} windows each, detections "
           f"{main_run['detected']}, merged boxes "
           f"{[len(v) for v in merged.values()]}; crop sides (w, h) min "
@@ -1658,7 +1714,8 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
                 name_power)
     return {"launches": main_run["launches"], "wall": main_run["wall"],
             "serial_wall": serial["wall"], "slide": path,
-            "params": backend.params, "n_windows": n_windows,
+            "params": backend.params, "consts": consts,
+            "n_windows": n_windows,
             "detected": main_run["detected"][0],
             "merged_csv": main_run["out"] / "OPT_PAS_GlomusMergedList_.csv",
             "no_json_out": no_json["out"]}
@@ -2018,7 +2075,9 @@ def staged_segment_phase(ckpt_dir: Path, name_power: str) -> dict:
             sorted(r["spans"].items(), key=lambda kv: -kv[1][0])),
             flush=True)
     return {"launches": launches[0], "k1": k1_case, "stage_s": stage_s,
-            "walls": {e: r["wall"] for e, r in runs.items()}}
+            "walls": {e: r["wall"] for e, r in runs.items()},
+            "slide": root / "data" / "02_PAS" / pid / f"{pid}.tiff",
+            "gt_boxes": tree["gt_boxes"]}
 
 
 def warmup_phase(ckpt_dir: Path, model_dir: Path, name_power: str) -> dict:
@@ -2372,7 +2431,7 @@ def segformer_e2e_phase(e2e: dict, model_dir: Path, b0_dir: Path,
         return canvas
 
     spans = HostSpans()
-    spans.wrap(Slide, "read_region_array", read_label)
+    wrap_slide_reads(spans)
     spans.wrap(cv2, "resize", lambda src, dsize, *a, **k: (
         "crop resizes (cv2, uint8)" if tuple(dsize) == (
             SEGFORMER_INPUT, SEGFORMER_INPUT) else "other cv2 resizes"))
@@ -2418,6 +2477,8 @@ def segformer_e2e_phase(e2e: dict, model_dir: Path, b0_dir: Path,
               f"differs from the ESPNet e2e phase's")
         check((r["out"] / f"{pid}_pred.jpg").is_file(),
               f"SegFormer e2e {name}: no overlay")
+        check(not python_reads(r["spans"]), f"SegFormer e2e {name}: reads "
+              f"through the Python reader {python_reads(r['spans'])}")
     rows = [ln.split(",") for ln in want_csv.splitlines()]
     pngs = sorted((runs["png"]["out"] / "json" / pid).glob("*.PNG"))
     check(len(pngs) == len(rows), f"SegFormer e2e: {len(pngs)} PNGs for "
@@ -2492,7 +2553,8 @@ def staged_gtcs_phase(b4_sd: dict, name_power: str) -> dict:
     labels.mkdir(parents=True)
     t0 = time.perf_counter()
     rows, areas = [], {}
-    with Slide(str(root / "data" / "02_PAS" / pid / f"{pid}.tiff")) as slide:
+    with wsi.open_slide(str(root / "data" / "02_PAS" / pid / f"{pid}.tiff")
+                        ) as slide:
         for (x1, y1, x2, y2), r in zip(tree["gt_boxes"], tree["radii"]):
             fw, fh = x2 - x1 + 2 * margin, y2 - y1 + 2 * margin
             crop = slide.read_region_array((x1 - margin, y1 - margin), 0,
@@ -2622,6 +2684,205 @@ def staged_gtcs_phase(b4_sd: dict, name_power: str) -> dict:
     return {"stage_s": stage_s, "miou": miou, "control_acc": control_acc}
 
 
+# ---------------- the native slide reader and gseg-selftest ----------------
+def reader_crops(e2e: dict, staged: dict) -> list:
+    """(name, slide path, level-0 regions) of the reader phase: every merged
+    box of the e2e slide's first job, and the GT slide's 32 glomerulus crops
+    over their 20 um margin frames (the staged GTCS phase's crops)."""
+    rows = [ln.split(",") for ln in e2e["merged_csv"].read_text()
+            .splitlines()]
+    boxes = [tuple(int(v) for v in r[3:7]) for r in rows
+             if r[1] == E2E_JOBS[0]]
+    margin = int(round(20.0 / DET_MPP))
+    frames = [(x1 - margin, y1 - margin, x2 + margin, y2 + margin)
+              for x1, y1, x2, y2 in staged["gt_boxes"]]
+    return [("e2e", e2e["slide"], boxes), ("GT", staged["slide"], frames)]
+
+
+def threaded_read(cls, path: Path, boxes: list, threads: int) -> float:
+    """Wall seconds to read ``boxes`` at level 0 from ``threads`` threads,
+    each over its own ``cls`` slide object and every ``threads``-th box."""
+    def work(part):
+        with cls(str(path)) as slide:
+            for x1, y1, x2, y2 in part:
+                slide.read_region_array((x1, y1), 0, (x2 - x1, y2 - y1))
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        list(pool.map(work, [boxes[i::threads] for i in range(threads)]))
+    return time.perf_counter() - t0
+
+
+def reader_phase(crop_sets: list, name_power: str) -> dict:
+    """The native reader against the Python one on the main path's crops:
+    every crop is read at level 0 by the Python reader and then the native one
+    (one slide object each), each call timed, and the bytes must be equal;
+    then, for the e2e slide, the same crops from ``READER_THREADS`` threads
+    with each reader.  Prints seconds and MP/s per reader and, where the
+    slide is NDPI-like, the restart-chunk decodes."""
+    out = {}
+    for name, path, boxes in crop_sets:
+        mpix = sum((x2 - x1) * (y2 - y1) for x1, y1, x2, y2 in boxes) / 1e6
+        secs = {"python": 0.0, "native": 0.0}
+        with Slide(str(path)) as ps, NativeSlide(str(path)) as ns:
+            for x1, y1, x2, y2 in boxes:
+                size = (x2 - x1, y2 - y1)
+                t0 = time.perf_counter()
+                a = ps.read_region_array((x1, y1), 0, size)
+                t1 = time.perf_counter()
+                b = ns.read_region_array((x1, y1), 0, size)
+                t2 = time.perf_counter()
+                secs["python"] += t1 - t0
+                secs["native"] += t2 - t1
+                check(a.shape == (size[1], size[0], 3)
+                      and np.array_equal(a, b), f"reader {name}: the "
+                      f"readers differ on {(x1, y1, x2, y2)}")
+            mode, decodes = ns.ndpi_index_mode(0), ns.chunk_decodes
+        layout = (f"NDPI-like, {decodes} restart-chunk decodes" if mode
+                  else "tiled: no restart chunks, not NDPI-like")
+        r = {"crops": len(boxes), "mpix": mpix, "serial_s": secs}
+        text = (f"reader {name}: {len(boxes)} crops, {mpix:.1f} MP at level "
+                f"0 ({layout}); native = python bytes on every crop; "
+                f"serial: python {secs['python']:.3f} s "
+                f"({mpix / secs['python']:.1f} MP/s), native "
+                f"{secs['native']:.3f} s ({mpix / secs['native']:.1f} MP/s), "
+                f"{secs['python'] / secs['native']:.2f}x")
+        if name == "e2e":
+            walls = {reader: threaded_read(cls, path, boxes, READER_THREADS)
+                     for reader, cls in (("python", Slide),
+                                         ("native", NativeSlide))}
+            r["threaded_s"] = walls
+            text += (f"; {READER_THREADS} threads: python "
+                     f"{walls['python']:.3f} s ({mpix / walls['python']:.1f} "
+                     f"MP/s), native {walls['native']:.3f} s "
+                     f"({mpix / walls['native']:.1f} MP/s), "
+                     f"{walls['python'] / walls['native']:.2f}x")
+        print(text + f" | {name_power}", flush=True)
+        out[name] = r
+    return out
+
+
+def load_graph_writer():
+    """``tests/pb_graph_writer.py`` (numpy only): writes constants as a
+    frozen GraphDef that ``convert/pb_import.py`` parses."""
+    spec = importlib.util.spec_from_file_location(
+        "pb_graph_writer", ROOT / "tests" / "pb_graph_writer.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def selftest_phase(slide: Path, consts: dict, params: dict,
+                   name_power: str) -> dict:
+    """``gseg-selftest`` (``cli/selftest.main``) on the e2e slide and the
+    e2e detector's constants (``consts``, assembled into ``params``)
+    written as a frozen graph, the K3 count set to
+    0 just before and read just after: exit 0 and an ``ok`` verdict; the
+    slide checked by both readers (``check_ndpi``'s native branch ran, no
+    pixel, property or decode mismatch); the graph parsed back to the e2e
+    detector's parameter count; one window through the detector, so K3
+    launches twice, (1, 6000 -> 300) and (1, 300 -> 100), and K3 holds to
+    ``nms_plain`` on those two problems of that window (taken from
+    ``check_pb``'s own backend after the run); the recall check skipped (no
+    GT of the reference's example slide here).  Returns the launches, the
+    wall time and the two K3 cases."""
+    root = WORK / "selftest"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    graph = root / "frozen_inference_graph.pb"
+    t0 = time.perf_counter()
+    load_graph_writer().write_graph(consts, str(graph))
+    write_s = time.perf_counter() - t0
+    verdict_path = root / "verdict.json"
+    printed = io.StringIO()
+    # keep check_pb's backend and window, to hold K3 against nms_plain on
+    # that window's own B = 1 problems after the run
+    windows = []
+    submit = ODAPIDetectorBackend.detect_batch_submit
+
+    def recording_submit(self, images):
+        windows.append((self, images))
+        return submit(self, images)
+
+    ODAPIDetectorBackend.detect_batch_submit = recording_submit
+    torch.cuda.synchronize()
+    nms.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = selftest_cli.main(["--ndpi", str(slide), "--pb",
+                                    str(graph), "--out", str(verdict_path)])
+        torch.cuda.synchronize()
+    finally:
+        ODAPIDetectorBackend.detect_batch_submit = submit
+    wall = time.perf_counter() - t0
+    launches = nms.launches
+    (root / "stdout.json").write_text(printed.getvalue())
+    verdict = json.loads(verdict_path.read_text())
+    check(json.loads(printed.getvalue()) == verdict,
+          "selftest: the printed verdict differs from the file")
+    check(rc == 0 and verdict["ok"] and verdict["checks_run"] == ["ndpi",
+                                                                  "pb"],
+          f"selftest: exit {rc}, ok {verdict['ok']}, checks "
+          f"{verdict['checks_run']}")
+    nd, pb = verdict["ndpi"], verdict["pb"]
+    check("open_native_s" in nd and "native_reader" not in nd,
+          f"selftest: check_ndpi's native branch did not run: "
+          f"{nd.get('native_reader')}")
+    check(nd["pixel_mismatches"] == nd["decode_errors"]
+          == nd["property_mismatches"] == [],
+          "selftest: the readers disagree on the e2e slide")
+    n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
+    check(pb["assembled_params"] == n_params and pb["contract_violations"]
+          == [] and pb["window_source"] == "slide-center",
+          f"selftest: check_pb {pb['assembled_params']} parameters (want "
+          f"{n_params}), {pb['contract_violations']}, {pb['window_source']}")
+    check("skipped" in verdict["recall_vs_real_gt"],
+          f"selftest: recall check {verdict['recall_vs_real_gt']}")
+    check(launches == 2, f"selftest: K3 launched {launches} times, want 2")
+    check(len(windows) == 1 and windows[0][1].shape[0] == 1,
+          f"selftest: check_pb ran {len(windows)} detect batches")
+    backend, images = windows[0]
+    cfg = backend.base_config
+    h, w = images.shape[1:3]
+    (rh, rw), model, anchors = backend._model_for(h, w)
+    x = (backend.resize_host(images, rh, rw) if (rh, rw) != (h, w)
+         else torch.from_numpy(np.ascontiguousarray(images)))
+    x = x.to(backend.device)
+    with torch.no_grad():
+        feats, obj, deltas = model.first_stage(x)
+        rpn_boxes, rpn_scores = model.rpn_candidates(obj, deltas, anchors)
+        proposals, prop_scores = model.propose(obj, deltas, anchors)
+        cls_logits, box_enc = model.box_classifier(feats, proposals)
+        cand_boxes, cand_scores = model.detection_candidates(
+            proposals, prop_scores, cls_logits, box_enc)
+    del feats
+    check(tuple(rpn_scores.shape) == (1, OD_K3_SHAPES["rpn"][1])
+          and tuple(cand_scores.shape) == (1, OD_K3_SHAPES["second"][1]),
+          f"selftest NMS problems {tuple(rpn_scores.shape)}, "
+          f"{tuple(cand_scores.shape)}")
+    k3 = {"selftest rpn proposals": nms_case(
+              rpn_boxes, rpn_scores, cfg.max_proposals,
+              cfg.rpn_nms_threshold),
+          "selftest second candidates": nms_case(
+              cand_boxes, cand_scores, cfg.max_detections,
+              cfg.second_nms_threshold, cfg.second_score_threshold)}
+    for label, r in k3.items():
+        print_nms_case(label, r, name_power)
+    top = pb["top_detections"][0]
+    print(f"selftest (gseg-selftest --ndpi <e2e slide> --pb <e2e detector "
+          f"as a frozen graph, {graph.stat().st_size / 1e6:.1f} MB written "
+          f"in {write_s:.2f} s>): exit {rc}, ok; check_ndpi: "
+          f"{len(nd['regions'])} regions over {nd['level_count']} levels, "
+          f"native = python, open python {nd['open_python_s']} s, native "
+          f"{nd['open_native_s']} s; check_pb: {pb['graph_constants']} "
+          f"constants parsed in {pb['parse_s']} s, {pb['assembled_params']} "
+          f"parameters, one 1024-px slide-centre window in {pb['detect_s']} "
+          f"s, top score {top['score']}; K3 launches {launches}; recall "
+          f"skipped; {wall:.3f} s | {name_power}", flush=True)
+    return {"launches": launches, "wall": wall, "k3": k3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2651,6 +2912,14 @@ def main() -> int:
             ptxas_summary(log)))
     check_sass("K1", "esp_block", 4, name_power)
     check_sass("K2", "esp_block_dma", 2, name_power)
+    # the native slide reader, with which every phase below opens slides
+    t0 = time.perf_counter()
+    reader_so = reader_build.build()
+    print(f"native slide reader: {reader_so.relative_to(ROOT)} "
+          f"({time.perf_counter() - t0:.2f} s, g++ "
+          + (f"{reader_build.build_log[0]:.2f} s" if reader_build.build_log
+             else "not needed") + ") linking "
+          + ", ".join(reader_build.libraries()), flush=True)
 
     phase_done("build")
 
@@ -2846,6 +3115,14 @@ def main() -> int:
     phase_done("SegFormer e2e")
     staged_gtcs_phase(segformer["b4_sd"], name_power)
     phase_done("staged GTCS")
+    reader_phase(reader_crops(e2e, staged), name_power)
+    phase_done("reader")
+    selftest = selftest_phase(e2e["slide"], e2e["consts"], e2e["params"],
+                              name_power)
+    phase_done("selftest")
+    check(wsi.python_fallbacks == 0 and native_reader.unavailable_reason
+          is None, f"{wsi.python_fallbacks} slides opened with the Python "
+          f"reader: {native_reader.unavailable_reason}")
     print("chip_smoke phases (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f} | {name_power}", flush=True)
@@ -2900,11 +3177,13 @@ def main() -> int:
                   serve_launches=served["launches"][1],
                   segformer_e2e_launches=segformer_e2e["launches"][1]),
         nms_entry("ResNet-50-C4 detector", k3, "rpn seeded", det_launches),
-        dict(nms_entry("OD-API frozen-graph detector", od_k3,
-                       "od_api rpn proposals", od_launches),
+        dict(nms_entry("OD-API frozen-graph detector",
+                       {**od_k3, **selftest["k3"]}, "od_api rpn proposals",
+                       od_launches),
              e2e_launches=e2e["launches"][2],
              serve_launches=served["launches"][2],
-             segformer_e2e_launches=segformer_e2e["launches"][2]),
+             segformer_e2e_launches=segformer_e2e["launches"][2],
+             selftest_launches=selftest["launches"]),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

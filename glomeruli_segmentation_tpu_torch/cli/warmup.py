@@ -9,8 +9,11 @@ flags and defaults.  The JAX command fills the persistent XLA compile cache
 so that later runs skip minutes of compiles.  The port's counterpart of
 that cache is ``build/torch_kernels/``: ``ops/_build.build_all()`` compiles
 every CUDA source there with ``nvcc``, and every later process of this
-checkout loads the libraries instead of compiling them.  That build is the
-only warm state that outlives this process.  PyTorch compiles nothing per
+checkout loads the libraries instead of compiling them.  On the card it
+also builds the native slide reader (``wsi/native/_build.build()``, ``g++``
+into ``build/native_reader/``), so the server's first ticket does not pay
+for the compiler.  Those builds are the only warm state that outlives this
+process.  PyTorch compiles nothing per
 shape, so the calls that follow warm nothing persistent: they run each
 shape a server or ``gseg-e2e`` run will use once on this card, in the JAX
 command's order, and fail here rather than in the first request:
@@ -85,6 +88,17 @@ def main(argv=None, device="cuda"):
               f"({time.perf_counter() - t0:.2f} s, nvcc "
               + (", ".join(f"{name} {sec:.2f} s" for name, (sec, _)
                            in _build.build_log.items()) or "not needed")
+              + ")", flush=True)
+        from ..wsi.native import _build as reader_build
+
+        t0 = time.perf_counter()
+        try:
+            built = f"built in {reader_build.build()}"
+        except OSError as e:  # open_slide then reads with the Python reader
+            built = f"unavailable: {e}"
+        print(f"native slide reader {built} ({time.perf_counter() - t0:.2f}"
+              " s, g++ " + (f"{reader_build.build_log[0]:.2f} s"
+                            if reader_build.build_log else "not needed")
               + ")", flush=True)
 
     did = []

@@ -43,5 +43,25 @@ def test_port_and_chip_smoke_import_without_jax():
     # family's (data, data/segformer_dataset, models/segformer,
     # convert/segformer_import, eval/mean_iou, pipeline/fused_segformer,
     # pipeline/segformer_test, pipeline/eval_wsi_gtcs, cli/segformer_test,
-    # cli/eval_wsi_gtcs)
-    assert count >= 63, proc.stdout
+    # cli/eval_wsi_gtcs) and the native reader, selftest and tools slice's
+    # (wsi/native, wsi/native/_build, wsi/native_reader, pipeline/selftest,
+    # cli/selftest, utils/summary, tools and its six scripts)
+    assert count >= 76, proc.stdout
+
+
+def test_native_reader_builds_from_the_ports_own_files():
+    """The reader is compiled from the port's copy of the source and
+    headers into the ignored ``build/`` tree, never from the JAX package's
+    ``wsi/native/``."""
+    from glomeruli_segmentation_tpu_torch.wsi.native import _build
+
+    port = ROOT / "glomeruli_segmentation_tpu_torch" / "wsi" / "native"
+    assert _build.SOURCE == port / "ndpi_reader.cc"
+    assert _build.INCLUDE == port / "include"
+    assert _build.BUILD_DIR == ROOT / "build" / "native_reader"
+    headers = {p.name for p in _build.INCLUDE.iterdir()}
+    assert {"jpeglib.h", "jconfig.h", "jmorecfg.h", "jerror.h", "zlib.h",
+            "zconf.h", "LICENSE.libjpeg-turbo", "LICENSE.zlib"} <= headers
+    command = " ".join(_build._command(ROOT / "out.so", ["libjpeg.so.62"]))
+    assert "glomeruli_segmentation_tpu/" not in command
+    assert "build/" in (ROOT / ".gitignore").read_text().split()

@@ -1,5 +1,5 @@
-"""The port's slide reader and synthetic slide writer (``wsi/``) against the
-JAX package's: the same geometry, properties and pixels from JPEG and
+"""The port's slide readers and synthetic slide writer (``wsi/``) against
+the JAX package's: the same geometry, properties and pixels from JPEG and
 uncompressed tiled pyramids and from an NDPI-like strip file, the same
 parse errors, and byte-identical files from both writers."""
 import sys
@@ -12,6 +12,7 @@ from glomeruli_segmentation_tpu.wsi import synthetic as jax_synthetic
 from glomeruli_segmentation_tpu.wsi.tiff_reader import Slide as JaxSlide
 from glomeruli_segmentation_tpu_torch import wsi as port_wsi
 from glomeruli_segmentation_tpu_torch.wsi import synthetic as port_synthetic
+from glomeruli_segmentation_tpu_torch.wsi.native_reader import NativeSlide
 from glomeruli_segmentation_tpu_torch.wsi.tiff_reader import (
     Slide,
     TiffParseError,
@@ -44,29 +45,33 @@ def _write(kind, path):
 @pytest.mark.parametrize("kind", ["jpeg", "none", "ndpi"])
 def test_slide_matches_jax(tmp_path, kind):
     path = _write(kind, tmp_path / f"s_{kind}.tiff")
-    with port_wsi.open_slide(path) as got, JaxSlide(path) as want, \
-            jax_wsi.open_slide(path) as native:
-        assert isinstance(got, Slide)
-        for ref in (want, native):
-            assert got.dimensions == ref.dimensions == (1024, 768)
-            assert got.level_count == ref.level_count == 3
-            assert got.level_dimensions == ref.level_dimensions
-            assert got.level_downsamples == ref.level_downsamples
-            assert got.properties == ref.properties
-            assert got.get_best_level_for_downsample(8) == \
-                ref.get_best_level_for_downsample(8)
-        assert got.properties[port_wsi.PROPERTY_NAME_OBJECTIVE_POWER] == "40"
-        for location, level, size in REGIONS:
-            a = got.read_region_array(location, level, size)
-            assert a.shape == (size[1], size[0], 3) and a.dtype == np.uint8
-            assert a.tobytes() == want.read_region_array(
-                location, level, size).tobytes()
-            assert a.tobytes() == native.read_region_array(
-                location, level, size).tobytes()
-        if kind == "ndpi":
-            assert got.chunk_decodes > 0
-        rgba = got.read_region((64, 32), 0, (40, 30))
-        assert rgba.mode == "RGBA" and rgba.size == (40, 30)
+    # the port's open_slide gives its native reader (as the JAX package's
+    # does where its library is built); its Python reader reads the same
+    with port_wsi.open_slide(path) as opened, Slide(path) as python, \
+            JaxSlide(path) as want, jax_wsi.open_slide(path) as native:
+        assert isinstance(opened, NativeSlide)
+        for got in (opened, python):
+            for ref in (want, native):
+                assert got.dimensions == ref.dimensions == (1024, 768)
+                assert got.level_count == ref.level_count == 3
+                assert got.level_dimensions == ref.level_dimensions
+                assert got.level_downsamples == ref.level_downsamples
+                assert got.properties == ref.properties
+                assert got.get_best_level_for_downsample(8) == \
+                    ref.get_best_level_for_downsample(8)
+            assert got.properties[port_wsi.PROPERTY_NAME_OBJECTIVE_POWER] \
+                == "40"
+            for location, level, size in REGIONS:
+                a = got.read_region_array(location, level, size)
+                assert a.shape == (size[1], size[0], 3) and a.dtype == np.uint8
+                assert a.tobytes() == want.read_region_array(
+                    location, level, size).tobytes()
+                assert a.tobytes() == native.read_region_array(
+                    location, level, size).tobytes()
+            if kind == "ndpi":
+                assert got.chunk_decodes > 0
+            rgba = got.read_region((64, 32), 0, (40, 30))
+            assert rgba.mode == "RGBA" and rgba.size == (40, 30)
 
 
 def test_truncated_and_foreign_files_raise(tmp_path):
