@@ -139,12 +139,32 @@
     window: (1, 6000 -> 300) and (1, 300 -> 100)), and K3 against its plain
     version on that window's own two B = 1 problems; then checks that no
     slide of the run was opened with the Python reader;
-18. prints one JSON line of kernel results (K3 once per detector, each with
+18. trains: ``gseg-train`` (``cli/train.main``) on a written synthetic
+    dataset (48 training and 12 validation 1024x512 PAS-like crops with
+    palette labels in 0..4, listed by ``gseg-create-dataset-txt``) at the
+    reference recipe (ESPNet p=2, q=8, 5 classes, batch 8, one epoch over
+    the five scales and the validation set), first the encoder, then the
+    decoder from the encoder's ``model_1.pth``: every artifact written, the
+    weights loading with ``strict=True``, every loss finite, and per scale
+    s/step at steady state (the first step of each shape left out),
+    images/s, the loader-wait share and the peak memory; one f32 decoder
+    step at 512x1024, batch 2, on the card and on the CPU from equal
+    state, twice (loss, gradients, BN statistics and parameters within
+    ``TRAIN_PARITY``); f32 and bf16 steps at the main scale (1024x512,
+    batch 10): s/step and the losses within 5e-2; ``gseg-segformer-train``
+    (``cli/segformer_train.main``) with mit-b0 from a backbone-only
+    ``model.safetensors`` of seeded weights over a written GTCS tree,
+    batch 2, accumulation 2, two epochs: the adopted tensors, ``log.txt``,
+    the checkpoints kept, the newest read back by ``gseg-segformer-test``'s
+    loader, s/step; the K1, K2 and K3 counts over the phase (0: the JAX
+    trainers reach no kernel either), recorded, not assumed;
+19. prints one JSON line of kernel results (K3 once per detector, each with
     its launches in the e2e run and in the server run, the OD-API one also
     in the SegFormer e2e run and in ``gseg-selftest``, and the selftest
     window's two cases among its ``cases``; K1 and K2 with their
     launches there too, 0; K1 also with its launches in the staged fused
-    segment run and its f32 case there) and, last, one JSON status line.
+    segment run and its f32 case there; each with its launches in the
+    training phase) and, last, one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
@@ -153,6 +173,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import importlib.util
 import io
 import json
@@ -160,6 +181,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -358,6 +380,26 @@ GTCS_SITE, GTCS_DATE = "01_Todai", "20260101"
 # object (the Python reader shares a file position), as in gseg-e2e, where
 # the detector, the crop producer and the overlay read at once
 READER_THREADS = 4
+# the training phase: a synthetic ESPNet dataset of PAS-like BGR crops
+# with palette labels in 0..4 (train, val, height, width): 48 training
+# crops give every scale steps past the first of its shape (batches of 8,
+# 12 and 10); the reference recipe's model and batch; the card-vs-CPU
+# step's batch at the main scale; the bf16 step's batch (the main scale's
+# batch_size + 2); SegFormer: a GTCS tree of 5 specimens x 2 crops of
+# 512 px (fold 1: 8 training crops), the trainer at batch 2 with
+# accumulation 2 for 2 epochs
+TRAIN_DATA = (48, 12, 512, 1024)
+TRAIN_CLASSES, TRAIN_P, TRAIN_Q, TRAIN_BATCH = 5, 2, 8, 8
+TRAIN_PARITY_BATCH, TRAIN_BF16_BATCH, TRAIN_TIMED_STEPS = 2, 10, 5
+TRAIN_MAIN_WH = (1024, 512)
+# card vs CPU, one f32 step each from equal state, TF32 off: loss
+# (relative), gradients (largest difference over the largest gradient), BN
+# running statistics and well-conditioned parameters (absolute); Adam's
+# ill-conditioned elements (sqrt of the corrected v below 100 eps) are held
+# to its bound of 2 lr; bf16 against f32 loss (relative)
+TRAIN_PARITY = {"loss": 1e-5, "grad": 1e-4, "stats": 1e-5, "param": 1e-5}
+TRAIN_BF16_RTOL = 5e-2
+SEGFORMER_TRAIN = (5, 2, 512)
 
 
 def check(ok: bool, message: str) -> None:
@@ -2883,6 +2925,441 @@ def selftest_phase(slide: Path, consts: dict, params: dict,
     return {"launches": launches, "wall": wall, "k3": k3}
 
 
+# ---------------- the training slice ----------------
+def write_train_tree(root: Path) -> Path:
+    """``root/{train,val}/{rgb,label}/<patient>/<crop>.PNG``: PAS-like BGR
+    crops (``pas_like_image``) whose glomeruli are labelled 1 with a tuft
+    of 2 and, in turn, a crescent (3) or sclerosis (4) cap, as palette
+    PNGs; then ``gseg-create-dataset-txt``'s lists."""
+    import cv2
+
+    from glomeruli_segmentation_tpu_torch.cli import (
+        create_dataset_txt as dataset_txt_cli,
+    )
+
+    n_train, n_val, h, w = TRAIN_DATA
+    yy, xx = np.mgrid[:h, :w]
+    for split, count in (("train", n_train), ("val", n_val)):
+        for i in range(count):
+            seed = i if split == "train" else 1000 + i
+            rng = np.random.RandomState(seed)
+            patient = f"P{i % 4}"
+            centers = [(int(rng.randint(60, w - 60)),
+                        int(rng.randint(60, h - 60)),
+                        int(rng.randint(30, 60))) for _ in range(4)]
+            rgb, _ = pas_like_image(h, w, seed=seed, centers=centers)
+            label = np.zeros((h, w), np.uint8)
+            for k, (cx, cy, r) in enumerate(centers):
+                d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+                label[d2 < r * r] = 1
+                label[d2 < (r * r) // 4] = 2
+                label[(d2 < r * r) & (yy < cy - r // 2)] = 3 + k % 2
+            for kind, array in (("rgb", rgb[:, :, ::-1]), ("label", label)):
+                folder = root / split / kind / patient
+                folder.mkdir(parents=True, exist_ok=True)
+                if kind == "rgb":
+                    cv2.imwrite(str(folder / f"crop{i}.PNG"), array)
+                else:
+                    lblsave(str(folder / f"crop{i}.PNG"), array)
+    dataset_txt_cli.main(["--data_dir", str(root)])
+    return root
+
+
+def steady_steps(timings: list) -> dict:
+    """Per scale from the trainer's per-step rows (scale, batch shape,
+    loader wait s, step s), leaving out the first step of each shape: steps
+    counted, mean s/step, images/s over step and wait, the loader-wait
+    share of each step."""
+    out, seen = {}, set()
+    for scale, shape, wait, step in timings:
+        if (scale, shape) in seen:
+            r = out.setdefault(scale, {"steps": 0, "step_s": 0.0,
+                                       "wait_s": 0.0, "images": 0,
+                                       "shape": shape})
+            r["steps"] += 1
+            r["step_s"] += step
+            r["wait_s"] += wait
+            r["images"] += shape[0]
+        seen.add((scale, shape))
+    for r in out.values():
+        busy = r["step_s"] + r["wait_s"]
+        r["s_per_step"] = r["step_s"] / r["steps"]
+        r["images_per_s"] = r["images"] / busy
+        r["wait_share"] = r["wait_s"] / busy
+    return out
+
+
+def espnet_train_run(root: Path, name: str, extra: list,
+                     name_power: str, device: str = "cuda") -> dict:
+    """``gseg-train`` through ``cli/train.main`` on the card, the peak
+    memory and the epoch loss of each scale recorded around the trainer's
+    ``train_epoch``; prints per scale s/step at steady state, images/s,
+    the loader-wait share and the peak memory."""
+    from glomeruli_segmentation_tpu_torch.cli import train as train_cli
+    from glomeruli_segmentation_tpu_torch.train import espnet_train
+
+    peaks, losses = {}, {}
+    train_epoch = espnet_train.EspnetTrainer.train_epoch
+
+    def recorded(self, model, optimizer, loader, scale="main"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = train_epoch(self, model, optimizer, loader, scale)
+        peaks[scale] = torch.cuda.max_memory_allocated() / 1e9
+        losses[scale] = out[0]
+        return out
+
+    espnet_train.EspnetTrainer.train_epoch = recorded
+    t0 = time.perf_counter()
+    try:
+        trainer = train_cli.main([
+            "--data_dir", str(root), "--cached_data_file",
+            str(root / "data.p"), "--savedir", str(WORK / "train" / "espnet"),
+            "--classes", str(TRAIN_CLASSES), "--p", str(TRAIN_P), "--q",
+            str(TRAIN_Q), "--batch_size", str(TRAIN_BATCH), "--max_epochs",
+            "1", "--num_workers", "4", "--device", device, *extra])
+    finally:
+        espnet_train.EspnetTrainer.train_epoch = train_epoch
+    seconds = time.perf_counter() - t0
+    savedir = Path(trainer.args.savedir)
+    for f in ("checkpoint.pth.tar", "model_1.pth", "acc_0.txt",
+              "trainValLog.txt", "mean_std.txt", "model.txt",
+              espnet_train.FULL_STATE):
+        check((savedir / f).is_file(), f"{name}: {f} not written")
+    row = (savedir / "trainValLog.txt").read_text().splitlines()[-1]
+    values = [float(v) for v in row.split("\t")]
+    check(all(math.isfinite(v) for v in values + list(losses.values())),
+          f"{name}: a loss is not finite: {row} {losses}")
+    sd = torch.load(savedir / "model_1.pth", weights_only=True)
+    model = create_espnet(TRAIN_CLASSES, TRAIN_P, TRAIN_Q,
+                          decoder="_dec_" in savedir.name)
+    model.load_state_dict(sd, strict=True)
+    tar = torch.load(savedir / "checkpoint.pth.tar", weights_only=True)
+    check(set(tar) == {"epoch", "arch", "state_dict", "lossTr", "lossVal",
+                       "iouTr", "iouVal", "lr"}, f"{name}: {sorted(tar)}")
+    steady = steady_steps(trainer.timings)
+    for scale in espnet_train.TRAIN_SCALES:
+        r = steady[scale]
+        print(f"train {name} {scale} batch {tuple(r['shape'])}: "
+              f"{r['s_per_step']:.4f} s/step over {r['steps']} steady "
+              f"steps, {r['images_per_s']:.2f} images/s, loader wait "
+              f"{r['wait_share']:.3f} of each step, peak memory "
+              f"{peaks[scale]:.3f} GB, epoch loss {losses[scale]:.4f} | "
+              f"{name_power}", flush=True)
+    print(f"train {name}: {seconds:.2f} s, {len(trainer.timings)} steps, "
+          f"log row {row!r}, {savedir.name}/ written | {name_power}",
+          flush=True)
+    return {"savedir": savedir, "seconds": seconds, "steady": steady,
+            "peaks": peaks}
+
+
+def host_batch(root: Path, count: int, width: int, height: int):
+    """The first ``count`` training crops through the validation pipeline
+    at ``width`` x ``height`` (the trainer's normalisation, no random
+    transform): an NHWC float32 batch and its int32 labels."""
+    import pickle
+
+    from glomeruli_segmentation_tpu_torch.data import transforms as T
+    from glomeruli_segmentation_tpu_torch.data.dataset import (
+        SegmentationDataset,
+    )
+
+    with open(root / "data.p", "rb") as f:
+        data = pickle.load(f)
+    ds = SegmentationDataset(data["trainIm"][:count],
+                             data["trainAnnot"][:count], T.Compose([
+                                 T.Normalize(data["mean"], data["std"]),
+                                 T.Scale(width, height), T.ToTensor(1)]))
+    items = [ds.get(i, np.random.default_rng(i)) for i in range(count)]
+    return (np.stack([a for a, _ in items]), np.stack([b for _, b in items]),
+            np.asarray(data["classWeights"], np.float32))
+
+
+def espnet_trainer(device: str, class_weights, bf16: bool = False):
+    from argparse import Namespace
+
+    from glomeruli_segmentation_tpu_torch.train.espnet_train import (
+        EspnetTrainer,
+    )
+
+    trainer = EspnetTrainer(Namespace(lr=5e-4, step_loss=100,
+                                      weight_decay=5e-4, bf16=bf16),
+                            device=device)
+    trainer.class_weights = torch.from_numpy(class_weights).to(device)
+    return trainer
+
+
+def espnet_model(state_dict: dict, device: str):
+    from glomeruli_segmentation_tpu_torch.train.batch_norm import (
+        use_flax_batch_norm,
+    )
+
+    model = create_espnet(TRAIN_CLASSES, TRAIN_P, TRAIN_Q)
+    model.load_state_dict(state_dict, strict=True)
+    return use_flax_batch_norm(model).to(device)
+
+
+def card_vs_cpu_step(sd: dict, batch, name_power: str,
+                     device: str = "cuda") -> dict:
+    """One ESPNet decoder step on the card and on the CPU from equal state
+    (weights, BN statistics, Adam's state), twice: the second from the
+    CPU's state after the first, copied to the card.  Float32, TF32 off
+    (the trainer's own setting).  Checks and prints the loss, the largest
+    gradient difference over the largest gradient, the BN running
+    statistics and the parameters against ``TRAIN_PARITY``."""
+    from glomeruli_segmentation_tpu_torch.train.espnet_train import nchw
+
+    x, y, weights = batch
+    runs = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        model = espnet_model(sd, dev)
+        trainer = espnet_trainer(dev, weights)
+        runs[name] = (model, trainer, trainer.build_optimizer(model))
+    report = []
+    for step in range(2):
+        if step:
+            cpu_model, _, cpu_opt = runs["cpu"]
+            card_model, _, card_opt = runs["card"]
+            card_model.load_state_dict(cpu_model.state_dict())
+            card_opt.load_state_dict(copy.deepcopy(cpu_opt.state_dict()))
+        losses, grads, states = {}, {}, {}
+        for name, (model, trainer, optimizer) in runs.items():
+            loss, _ = trainer.train_step(
+                model, optimizer, nchw(torch.from_numpy(x).to(
+                    trainer.device)), torch.from_numpy(y).to(trainer.device))
+            losses[name] = float(loss)
+            grads[name] = {k: p.grad.detach().cpu() for k, p in
+                           model.named_parameters()}
+            states[name] = {k: v.detach().cpu() for k, v in
+                            model.state_dict().items()}
+        cpu_opt = runs["cpu"][2]
+        root_v = {}
+        for k, p in runs["cpu"][0].named_parameters():
+            st = cpu_opt.state[p]
+            root_v[k] = (st["exp_avg_sq"] / (1 - 0.999 ** float(
+                st["step"]))).sqrt()
+        loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        g_max = max(float(g.abs().max()) for g in grads["cpu"].values())
+        g_diff = max(float((grads["card"][k] - g).abs().max())
+                     for k, g in grads["cpu"].items())
+        stats = max(float((states["card"][k] - v).abs().max())
+                    for k, v in states["cpu"].items() if "running" in k)
+        well, ill, masked, total = 0.0, 0.0, 0, 0
+        for k, v in root_v.items():
+            d = (states["card"][k] - states["cpu"][k]).abs()
+            ok = v >= 100 * 1e-8
+            well = max(well, float(d[ok].max()) if ok.any() else 0.0)
+            ill = max(ill, float(d[~ok].max()) if (~ok).any() else 0.0)
+            masked += int((~ok).sum())
+            total += ok.numel()
+        print(f"train card vs CPU, ESPNet decoder f32 step {step + 1} at "
+              f"{tuple(x.shape)}: loss {losses['card']:.7f} vs "
+              f"{losses['cpu']:.7f} (rel {loss_rel:.3e}), largest gradient "
+              f"difference {g_diff:.3e} of {g_max:.3e} ({g_diff / g_max:.3e})"
+              f", BN running statistics {stats:.3e}, parameters "
+              f"{well:.3e} (Adam's ill-conditioned {masked} of {total}: "
+              f"{ill:.3e}) | {name_power}", flush=True)
+        check(loss_rel <= TRAIN_PARITY["loss"]
+              and g_diff <= TRAIN_PARITY["grad"] * g_max
+              and stats <= TRAIN_PARITY["stats"]
+              and well <= TRAIN_PARITY["param"] and ill <= 2 * 5e-4,
+              f"card and CPU training steps disagree (step {step + 1})")
+        report.append({"loss_rel": loss_rel, "grad_rel": g_diff / g_max,
+                       "stats": stats, "param": well})
+    return {"steps": report}
+
+
+def bf16_vs_f32_steps(sd: dict, batch, name_power: str,
+                      device: str = "cuda") -> dict:
+    """The main scale's batch (1024x512, batch 10) through f32 and --bf16
+    steps from the decoder's weights: s/step over ``TRAIN_TIMED_STEPS``
+    steps after two, the first steps' losses."""
+    from glomeruli_segmentation_tpu_torch.train.espnet_train import (
+        nchw,
+        upload,
+    )
+
+    x, y, weights = batch
+    out = {}
+    for bf16 in (False, True):
+        model = espnet_model(sd, device)
+        trainer = espnet_trainer(device, weights, bf16)
+        optimizer = trainer.build_optimizer(model)
+        dev = trainer.device
+        times, first = [], None
+        for i in range(2 + TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            loss, hist = trainer.train_step(model, optimizer,
+                                            nchw(upload(x, dev)),
+                                            upload(y, dev))
+            loss, _ = trainer._read(loss, hist)
+            times.append(time.perf_counter() - t0)
+            first = loss if first is None else first
+        out["bf16" if bf16 else "f32"] = (float(np.median(times[2:])),
+                                          first)
+    (t32, l32), (t16, l16) = out["f32"], out["bf16"]
+    rel = abs(l16 - l32) / abs(l32)
+    print(f"train ESPNet decoder main scale {tuple(x.shape)}: f32 (TF32 "
+          f"off) {t32:.4f} s/step, bf16 {t16:.4f} s/step ({t32 / t16:.2f}x);"
+          f" first-step loss f32 {l32:.5f}, bf16 {l16:.5f} (rel {rel:.3e}, "
+          f"bar {TRAIN_BF16_RTOL}) | {name_power}", flush=True)
+    check(rel <= TRAIN_BF16_RTOL, f"bf16 loss {l16} vs f32 {l32}")
+    return {"f32_s": t32, "bf16_s": t16, "loss_rel": rel}
+
+
+def write_f32_safetensors(tensors: dict, path: Path) -> None:
+    """A ``.safetensors`` file of float32 tensors: an 8-byte little-endian
+    header length, the JSON header, the raw bytes."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        blob = t.detach().float().contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+def segformer_train_run(name_power: str, device: str = "cuda") -> dict:
+    """``gseg-segformer-train`` through ``cli/segformer_train.main`` on the
+    card from a backbone-only mit-b0 ``model.safetensors`` of seeded
+    weights, over a synthetic GTCS tree; each micro-batch step timed
+    (synchronised) by wrapping the trainer's ``build_steps``.  Checks the
+    adopted tensors, ``log.txt``, the checkpoints kept and the newest
+    ``flax_model.pth`` through ``gseg-segformer-test``'s loader."""
+    from PIL import Image
+
+    from glomeruli_segmentation_tpu_torch.cli import (
+        segformer_train as segformer_train_cli,
+    )
+    from glomeruli_segmentation_tpu_torch.pipeline.fused_segformer import (
+        load_segformer_checkpoint,
+    )
+    from glomeruli_segmentation_tpu_torch.train import segformer_train
+
+    root = WORK / "train" / "gtcs"
+    specimens, crops, size = SEGFORMER_TRAIN
+    data = root / GTCS_SITE / GTCS_DATE
+    yy, xx = np.mgrid[:size, :size]
+    for s_ in range(specimens):
+        for i in range(crops):
+            seed = 100 * s_ + i
+            rng = np.random.RandomState(seed)
+            cy, cx = (int(v) for v in rng.randint(size // 4,
+                                                  3 * size // 4, 2))
+            r = int(rng.randint(size // 8, size // 4))
+            rgb, _ = pas_like_image(size, size, seed=seed,
+                                    centers=[(cx, cy, r)])
+            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            label = np.where(d2 < r * r, 1, 0).astype(np.uint8)
+            label[d2 < (r * r) // 4] = 2
+            label[(d2 < r * r) & (xx > cx + r // 2)] = 3 + s_ % 2
+            for kind in ("rgb", "label/gtcs"):
+                (data / kind / f"S{s_}").mkdir(parents=True, exist_ok=True)
+            Image.fromarray(rgb).save(data / "rgb" / f"S{s_}" / f"c{i}.PNG")
+            lblsave(str(data / "label/gtcs" / f"S{s_}" / f"c{i}.PNG"), label)
+    ckpt = root / "mit-b0"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    backbone = {k: t for k, t in random_segformer_state_dict(
+        SEGFORMER_CONFIGS["mit-b0"], SEGFORMER_SEED).items()
+        if not k.startswith("decode_head.")}
+    write_f32_safetensors(backbone, ckpt / "model.safetensors")
+
+    times = []
+    build_steps = segformer_train.build_steps
+
+    def timed_steps(*args, **kwargs):
+        train_step, eval_step = build_steps(*args, **kwargs)
+
+        def step(x, y):
+            t0 = time.perf_counter()
+            loss = train_step(x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return loss
+        return step, eval_step
+
+    segformer_train.build_steps = timed_steps
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            out_dir = Path(segformer_train_cli.main([
+                "--site", GTCS_SITE, "--data_root", str(root),
+                "--data_date", GTCS_DATE, "--model_root",
+                str(root / "models"), "--output_dir", "b0", "--fold", "1",
+                "--batch_size", "2", "--accumulation_steps", "2",
+                "--save_interval", "1", "--max_epoch", "2",
+                "--pretrained_checkpoint", str(ckpt / "model.safetensors"),
+                "--device", device]))
+    finally:
+        segformer_train.build_steps = build_steps
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    adopted = re.findall(r"\((\d+) tensors adopted\)", out.getvalue())
+    check(adopted == [str(len(backbone))],
+          f"adopted {adopted}, want {len(backbone)}")
+    log = [json.loads(line) for line in open(out_dir / "log.txt")]
+    check([sorted(r) for r in log] == [["epoch", "loss"],
+                                       ["epoch", "eval_mean_iou"]] * 2
+          and all(math.isfinite(v) for r in log for v in r.values()),
+          f"log.txt {log}")
+    kept = sorted(p.name for p in out_dir.glob("checkpoint-*"))
+    check(kept and "checkpoint-8" in kept, f"checkpoints kept {kept}")
+    newest, labels = load_segformer_checkpoint(
+        str(out_dir / "checkpoint-8" / "flax_model.pth"))
+    best, _ = load_segformer_checkpoint(str(out_dir))
+    check(labels == 5 and best.keys() == newest.keys()
+          and config_from_state_dict(newest) == SEGFORMER_CONFIGS["mit-b0"],
+          "flax_model.pth does not read back as mit-b0")
+    steady = times[1:]
+    print(f"train SegFormer mit-b0 512x512, batch 2, accumulation 2: "
+          f"{len(times)} micro-batch steps, {float(np.mean(steady)):.4f} "
+          f"s/step at steady state (first {times[0]:.3f} s), "
+          f"{2 / float(np.mean(steady)):.2f} images/s; {adopted[0]} tensors "
+          f"adopted; log {[round(v, 5) for r in log for k, v in r.items() if k != 'epoch']}; "
+          f"kept {kept}; {seconds:.2f} s, peak memory {peak:.3f} GB | "
+          f"{name_power}", flush=True)
+    return {"s_per_step": float(np.mean(steady)), "kept": kept,
+            "seconds": seconds}
+
+
+def training_phase(name_power: str, device: str = "cuda") -> dict:
+    """The training slice on the card: ``gseg-train`` (encoder, then the
+    decoder from the encoder's ``model_1.pth``), the card's f32 step against
+    the CPU's, bf16 against f32 at the main scale, ``gseg-segformer-train``;
+    the K1, K2 and K3 counts set to 0 before and read after (the trainers
+    run the plain models, as the JAX trainers reach no kernel)."""
+    root = WORK / "train" / "data"
+    shutil.rmtree(WORK / "train", ignore_errors=True)
+    t0 = time.perf_counter()
+    write_train_tree(root)
+    write_s = time.perf_counter() - t0
+    esp_block_fused.launches = esp_block_padded.launches = nms.launches = 0
+    enc = espnet_train_run(root, "encoder", ["--scaleIn", "8"], name_power,
+                           device)
+    dec = espnet_train_run(root, "decoder", [
+        "--scaleIn", "1", "--decoder", "True", "--pretrained",
+        str(enc["savedir"] / "model_1.pth")], name_power, device)
+    sd = torch.load(dec["savedir"] / "model_1.pth", weights_only=True)
+    parity = card_vs_cpu_step(sd, host_batch(root, TRAIN_PARITY_BATCH,
+                                             *TRAIN_MAIN_WH), name_power,
+                              device)
+    bf16 = bf16_vs_f32_steps(sd, host_batch(root, TRAIN_BF16_BATCH,
+                                            *TRAIN_MAIN_WH), name_power,
+                             device)
+    segformer = segformer_train_run(name_power, device)
+    launches = (esp_block_fused.launches, esp_block_padded.launches,
+                nms.launches)
+    print(f"train phase kernel launches (K1, K2, K3): {launches} (the "
+          f"trainers run the plain models); data written in {write_s:.2f} s"
+          f" | {name_power}", flush=True)
+    return {"launches": launches, "encoder": enc, "decoder": dec,
+            "parity": parity, "bf16": bf16, "segformer": segformer}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3120,6 +3597,8 @@ def main() -> int:
     selftest = selftest_phase(e2e["slide"], e2e["consts"], e2e["params"],
                               name_power)
     phase_done("selftest")
+    training = training_phase(name_power)
+    phase_done("training")
     check(wsi.python_fallbacks == 0 and native_reader.unavailable_reason
           is None, f"{wsi.python_fallbacks} slides opened with the Python "
           f"reader: {native_reader.unavailable_reason}")
@@ -3167,23 +3646,28 @@ def main() -> int:
                   serve_launches=served["launches"][0],
                   segformer_e2e_launches=segformer_e2e["launches"][0],
                   staged_segment_launches=staged["launches"],
+                  training_launches=training["launches"][0],
                   staged_segment_f32={k: staged["k1"][k] for k in (
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by")}),
         esp_entry("esp_block_padded", "esp_block_dma.cu",
                   "esp_block.py:167 (_esp_kernel_dma)", k2, k2_launches,
                   composed_ms=k2_composed_ms,
+                  training_launches=training["launches"][1],
                   e2e_launches=e2e["launches"][1],
                   serve_launches=served["launches"][1],
                   segformer_e2e_launches=segformer_e2e["launches"][1]),
-        nms_entry("ResNet-50-C4 detector", k3, "rpn seeded", det_launches),
+        dict(nms_entry("ResNet-50-C4 detector", k3, "rpn seeded",
+                       det_launches),
+             training_launches=training["launches"][2]),
         dict(nms_entry("OD-API frozen-graph detector",
                        {**od_k3, **selftest["k3"]}, "od_api rpn proposals",
                        od_launches),
              e2e_launches=e2e["launches"][2],
              serve_launches=served["launches"][2],
              segformer_e2e_launches=segformer_e2e["launches"][2],
-             selftest_launches=selftest["launches"]),
+             selftest_launches=selftest["launches"],
+             training_launches=training["launches"][2]),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

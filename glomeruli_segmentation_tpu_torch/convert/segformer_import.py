@@ -218,13 +218,58 @@ def state_dict_from_variables(variables: Mapping[str, Any]) -> StateDict:
     return out
 
 
-def load_segformer_state_dict(checkpoint_path: str) -> StateDict:
-    """An HF checkpoint directory or ``pytorch_model.bin`` -> the port's
-    state dict.  ``.safetensors`` raises ``NotImplementedError``: the card's
-    machine has no ``safetensors`` package, and only the trainer (the
-    training slice, not ported yet) loads the published backbone.  A
-    backbone-only checkpoint (no decode head) raises ``ValueError``: only
-    the trainer fills in a head."""
+# safetensors dtype names -> torch dtypes (all stored little-endian)
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> StateDict:
+    """A ``.safetensors`` file as CPU tensors, read with the standard
+    library: an 8-byte little-endian header length, that many bytes of a
+    JSON header (per tensor its dtype, shape and ``[begin, end)`` byte
+    offsets into the data that follows; ``__metadata__`` is skipped), then
+    the raw little-endian tensor bytes (the hosts' own order).  The card's
+    machine has no ``safetensors`` package."""
+    import json
+    import struct
+
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out: StateDict = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has unsupported dtype "
+                             f"{info['dtype']}")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if end - begin != count * dtype.itemsize or end > len(data):
+            raise ValueError(f"{path}: {name} has {end - begin} bytes for "
+                             f"shape {shape} {info['dtype']}")
+        t = (torch.frombuffer(bytearray(data[begin:end]), dtype=dtype)
+             if count else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(shape)
+    return out
+
+
+def load_segformer_state_dict(checkpoint_path: str,
+                              backbone_only: bool = False) -> StateDict:
+    """An HF checkpoint directory, ``pytorch_model.bin`` or
+    ``model.safetensors`` -> the port's state dict, as the JAX package's
+    ``load_segformer_variables`` reads them.  A backbone-only checkpoint
+    (no decode head, as the published ``nvidia/mit-b*`` weights) gives the
+    encoder-only state dict with ``backbone_only=True``, which only the
+    trainer passes (it fills in a head); otherwise it raises
+    ``ValueError``."""
     path = checkpoint_path
     if os.path.isdir(path):
         for name in ("pytorch_model.bin", "model.safetensors"):
@@ -233,12 +278,10 @@ def load_segformer_state_dict(checkpoint_path: str) -> StateDict:
                 path = candidate
                 break
     if path.endswith(".safetensors"):
-        raise NotImplementedError(
-            f"{path}: .safetensors checkpoints are read by the SegFormer "
-            f"trainer, which the training slice ports; pass a "
-            f"pytorch_model.bin")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "decode_head.linear_fuse.weight" not in sd:
+        sd = read_safetensors(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "decode_head.linear_fuse.weight" not in sd and not backbone_only:
         raise ValueError(f"{path} is a backbone-only checkpoint (no decode "
                          f"head); only the trainer fills in a head")
     return dict(sd)

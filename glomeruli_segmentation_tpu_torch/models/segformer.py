@@ -257,10 +257,10 @@ class SegformerHead(nn.Module):
         x = torch.cat(projected[::-1], dim=-1)
         # the 1x1 convs as products over the channel axis
         x = F.linear(x, self.linear_fuse.weight.flatten(1))
-        bn = self.batch_norm
-        x = F.batch_norm(x.permute(0, 3, 1, 2).float(), bn.running_mean,
-                         bn.running_var, bn.weight, bn.bias, False, 0.0,
-                         bn.eps).to(x.dtype).permute(0, 2, 3, 1)
+        # float32 statistics; in training mode the batch's (the trainer's
+        # FlaxBatchNorm2d updates the running ones as the JAX package does)
+        x = self.batch_norm(x.permute(0, 3, 1, 2).float()).to(
+            x.dtype).permute(0, 2, 3, 1)
         x = F.relu(x)
         return F.linear(x, self.classifier.weight.flatten(1),
                         self.classifier.bias)

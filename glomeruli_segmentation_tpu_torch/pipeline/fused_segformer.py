@@ -64,6 +64,9 @@ def load_segformer_checkpoint(path: str):
             path = os.path.join(path, search_best_checkpoint(path),
                                 "flax_model.pth")
     blob = torch.load(path, map_location="cpu", weights_only=True)
+    if "head" not in blob["params"]:
+        raise ValueError(f"{path} is a backbone-only checkpoint (no decode "
+                         f"head); only the trainer fills in a head")
 
     def arrays(node):
         if isinstance(node, dict):

@@ -243,8 +243,9 @@ def test_load_segformer_checkpoint_forms(tmp_path):
 
 
 def test_load_segformer_state_dict(tmp_path):
-    """An HF directory or ``pytorch_model.bin`` loads; ``.safetensors`` and
-    a backbone-only checkpoint raise."""
+    """An HF directory, ``pytorch_model.bin`` or ``model.safetensors``
+    loads; a backbone-only checkpoint raises unless the trainer asks for
+    it (``tests/test_torch_segformer_train.py``)."""
     sd = state_dict_from_variables(jax_variables(seed=7))
     hf = tmp_path / "hf"
     hf.mkdir()
@@ -255,10 +256,13 @@ def test_load_segformer_state_dict(tmp_path):
         assert all(torch.equal(got[k], sd[k]) for k in sd)
     st = tmp_path / "st"
     st.mkdir()
-    (st / "model.safetensors").write_bytes(b"")
+    safetensors_torch = pytest.importorskip("safetensors.torch")
+    safetensors_torch.save_file({k: t.contiguous() for k, t in sd.items()},
+                                str(st / "model.safetensors"))
     for path in (st, st / "model.safetensors"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            load_segformer_state_dict(str(path))
+        got = load_segformer_state_dict(str(path))
+        assert got.keys() == sd.keys()
+        assert all(torch.equal(got[k], sd[k]) for k in sd)
     backbone = tmp_path / "backbone.bin"
     torch.save({k: t for k, t in sd.items()
                 if not k.startswith("decode_head.")}, backbone)
