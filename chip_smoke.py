@@ -158,16 +158,36 @@
     the checkpoints kept, the newest read back by ``gseg-segformer-test``'s
     loader, s/step; the K1, K2 and K3 counts over the phase (0: the JAX
     trainers reach no kernel either), recorded, not assumed;
-19. prints one JSON line of kernel results (K3 once per detector, each with
+19. trains the detectors on the staged segment phase's GT slide tree
+    (512x512 windows at ds8, batch 4, lr 1e-3): ``gseg-train-detector``
+    (``cli/train_detector.main``) for the native ResNet-50-C4 Faster R-CNN,
+    30 steps in f32 and 20 in ``--bf16``, and ``--finetune_pb`` on the e2e
+    detector's constants written as a frozen graph, 20 steps (64
+    proposals), each run with the K3 count set to 0 just before and read
+    just after (one launch a step), every loss finite, s/step at steady
+    state, the window sampler's share and the peak memory; K3 against
+    ``nms_plain`` on the real RPN problems of a training batch, (4, 2000
+    -> 300) and (4, 6000 -> 64) at IoU 0.7; one f32 step with and without
+    K3 from equal state (proposals bitwise equal, losses within 1e-6); the
+    card's f32 step against the CPU's (ResNet-50-C4, 512x512, batch 1:
+    losses, gradients and BN statistics within ``TRAIN_PARITY``, on the
+    CPU's proposals where the two devices' differ, with the share of equal
+    proposals); each checkpoint through ``cli/detect.load_backend``
+    detecting a window batch on the card;
+20. prints one JSON line of kernel results (K3 once per detector, each with
     its launches in the e2e run and in the server run, the OD-API one also
     in the SegFormer e2e run and in ``gseg-selftest``, and the selftest
     window's two cases among its ``cases``; K1 and K2 with their
     launches there too, 0; K1 also with its launches in the staged fused
     segment run and its f32 case there; each with its launches in the
-    training phase) and, last, one JSON status line.
+    training phase; K3 also with its launches in the detector training
+    phase and its training-shape case among its ``cases``) and, last, one
+    JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
+``python3 chip_smoke.py --only detector_training`` builds and runs phase
+19 alone (on a tree it writes), without the result lines.
 """
 from __future__ import annotations
 
@@ -400,6 +420,29 @@ TRAIN_MAIN_WH = (1024, 512)
 TRAIN_PARITY = {"loss": 1e-5, "grad": 1e-4, "stats": 1e-5, "param": 1e-5}
 TRAIN_BF16_RTOL = 5e-2
 SEGFORMER_TRAIN = (5, 2, 512)
+# the detector training phase on the staged GT slide's windows: the
+# trainers' defaults (512x512 windows at ds8, batch 4, lr 1e-3); steps of
+# the native ResNet-50-C4 in f32 and in bf16, and of the OD-API fine-tune
+# (64 proposals); the first steps of a run left out of its steady state;
+# the card-vs-CPU step's batch; the K3 problems of a training step, (P, N,
+# k, IoU): the native RPN (4, 2000 -> 300) and the fine-tune's (4, 6000 ->
+# 64)
+DET_TRAIN_SIZE, DET_TRAIN_BATCH, DET_TRAIN_LR = 512, 4, 1e-3
+DET_TRAIN_BACKBONE = "resnet50"
+DET_TRAIN_STEPS = {"native f32": 30, "native bf16": 20, "od_api f32": 20}
+DET_TRAIN_WARM, DET_TRAIN_PARITY_BATCH = 3, 1
+K3_TRAIN_SHAPES = {"native": (4, 2000, 300, 0.7),
+                   "od_api": (4, 6000, 64, 0.7)}
+# Adam's first update turns on float32 rounding where |g| is under 1000 eps
+# (it moves the update by lr * eps * dg / |g|^2): such elements are held to
+# its bound of two lr (tests/test_torch_detector_driver.py)
+DET_ILL_CONDITIONED = 1000 * 1e-8
+# the card against the CPU: the CPU's own float32 noise floor (half its
+# threads, so another summation order in some reductions) times this,
+# where that is above TRAIN_PARITY: the card's order differs in every
+# reduction.  After 30 steps, gradients of this BN-heavy network agree only
+# to ~1e-3 of the largest between any two summation orders
+DET_NOISE_FACTOR = 10
 
 
 def check(ok: bool, message: str) -> None:
@@ -3360,7 +3403,376 @@ def training_phase(name_power: str, device: str = "cuda") -> dict:
             "parity": parity, "bf16": bf16, "segformer": segformer}
 
 
-def main() -> int:
+def detector_train_run(root: Path, name: str, extra: list, steps: int,
+                       name_power: str, device: str = "cuda") -> dict:
+    """``gseg-train-detector`` through ``cli/train_detector.main`` on the
+    card for ``steps`` steps, each step's sampler and step seconds recorded
+    (the step ended by reading its losses back), the K3 count set to 0
+    just before and read just after, the peak memory.  Checks the
+    checkpoint, every loss finite and K3 launched once a step; prints
+    s/step at steady state (the first ``DET_TRAIN_WARM`` steps left out),
+    the sampler's share and the peak memory."""
+    from glomeruli_segmentation_tpu_torch.cli import (
+        train_detector as train_detector_cli,
+    )
+    from glomeruli_segmentation_tpu_torch.train import (
+        detector_driver,
+        od_api_finetune,
+    )
+
+    rows, losses = [], []
+    sample = detector_driver.SlideWindowSampler.sample_batch
+    step = detector_driver.train_step
+
+    def timed_sample(self, rng):
+        t0 = time.perf_counter()
+        out = sample(self, rng)
+        rows.append([time.perf_counter() - t0])
+        return out
+
+    def timed_step(*args, **kw):
+        t0 = time.perf_counter()
+        out = step(*args, **kw)
+        losses.append(torch.stack(list(out[0].values())).cpu().tolist())
+        rows[-1].append(time.perf_counter() - t0)
+        return out
+
+    out_dir = WORK / "det_train" / name.replace(" ", "_")
+    detector_driver.SlideWindowSampler.sample_batch = timed_sample
+    detector_driver.train_step = timed_step
+    nms.launches = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        path = Path(train_detector_cli.main([
+            "--data_dir", str(root / "data"), "--target_list",
+            str(root / "targets.txt"), "--output_dir", str(out_dir),
+            "--steps", str(steps), "--batch_size", str(DET_TRAIN_BATCH),
+            "--image_size", str(DET_TRAIN_SIZE), "--lr", str(DET_TRAIN_LR),
+            "--backbone", DET_TRAIN_BACKBONE, "--device", device, *extra]))
+    finally:
+        detector_driver.SlideWindowSampler.sample_batch = sample
+        detector_driver.train_step = step
+    seconds = time.perf_counter() - t0
+    launches = nms.launches
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+               else float("nan"))
+    expect = (od_api_finetune.OD_API_CKPT_NAME if "--finetune_pb" in extra
+              else "detector.ckpt.pth")
+    check(path == out_dir / expect and path.is_file(),
+          f"detector training {name}: wrote {path}")
+    check(launches == (steps if device == "cuda" else 0),
+          f"detector training {name}: K3 launched {launches} times in "
+          f"{steps} steps")
+    check(len(losses) == steps and all(math.isfinite(v) for row in losses
+                                       for v in row),
+          f"detector training {name}: a loss is not finite: {losses[-1:]}")
+    # the JAX driver draws one batch for model.init before its loop
+    timed = [r for r in rows if len(r) == 2][DET_TRAIN_WARM:]
+    sample_s = sum(r[0] for r in timed)
+    step_s = sum(r[1] for r in timed)
+    r = {"path": path, "steps": steps, "launches": launches,
+         "seconds": seconds, "peak_gb": peak_gb,
+         "s_per_step": (sample_s + step_s) / len(timed),
+         "step_s": step_s / len(timed),
+         "sampler_share": sample_s / (sample_s + step_s),
+         "first_losses": losses[0], "last_losses": losses[-1]}
+    print(f"detector training {name} ({DET_TRAIN_SIZE}x{DET_TRAIN_SIZE}, "
+          f"batch {DET_TRAIN_BATCH}): {r['s_per_step']:.4f} s/step at "
+          f"steady state over {len(timed)} steps (the step "
+          f"{r['step_s']:.4f} s, the window sampler "
+          f"{r['sampler_share']:.3f} of each), peak memory {peak_gb:.3f} GB,"
+          f" K3 launches {launches} in {steps} steps; total loss "
+          f"{losses[0][-1]:.4f} at step 0, {losses[-1][-1]:.4f} at step "
+          f"{steps - 1}; run {seconds:.2f} s, {path.name} written | "
+          f"{name_power}", flush=True)
+    return r
+
+
+def detector_sampler_batch(root: Path, batch: int, seed: int):
+    """A training batch of the staged tree's windows, on the host."""
+    from glomeruli_segmentation_tpu_torch.train.detector_driver import (
+        DetectorTrainConfig,
+        SlideWindowSampler,
+    )
+
+    sampler = SlideWindowSampler(
+        "OPT_PAS", str(root / "data"), str(root / "targets.txt"),
+        DetectorTrainConfig(image_size=DET_TRAIN_SIZE, batch_size=batch))
+    return sampler.sample_batch(np.random.default_rng(seed))
+
+
+def native_train_model(state: dict, device: str, kernel_nms: bool = True):
+    from glomeruli_segmentation_tpu_torch.models.faster_rcnn import (
+        FasterRCNN,
+    )
+
+    cfg = FasterRCNNConfig(image_size=(DET_TRAIN_SIZE, DET_TRAIN_SIZE),
+                           backbone=DET_TRAIN_BACKBONE)
+    return FasterRCNN(cfg, kernel_nms=kernel_nms, train_form=True
+                      ).load_state(state).to(device)
+
+
+def native_step(model, batch, device: str):
+    """One f32 training step of ``model`` on a host batch from a fresh
+    Adam: (losses, proposals, gradients, Adam's sqrt of the corrected v,
+    the detector state after), on the CPU, the last three keyed as the
+    detector state."""
+    from glomeruli_segmentation_tpu_torch.models.resnet import (
+        detector_state,
+    )
+    from glomeruli_segmentation_tpu_torch.train import detector_driver
+
+    optimizer = torch.optim.Adam(model.parameters(), lr=DET_TRAIN_LR,
+                                 eps=1e-8)
+    anchors = build_anchors(model.config).to(device)
+    losses, proposals = detector_driver.train_step(
+        model, optimizer, detector_driver.native_forward, anchors,
+        detector_driver.upload_batch(batch, torch.device(device)))
+    grads = detector_state({k: p.grad for k, p in model.named_parameters()})
+    root_v = detector_state({
+        k: (optimizer.state[p]["exp_avg_sq"] / (1 - 0.999)).sqrt()
+        for k, p in model.named_parameters()})
+    return ({k: float(v) for k, v in losses.items()}, proposals.cpu(), grads,
+            root_v, model.detector_state())
+
+
+def with_proposals(model, proposals: torch.Tensor):
+    """``model``, its proposal stage replaced by fixed proposals."""
+    model.propose = lambda *a: (proposals, torch.zeros(
+        proposals.shape[:2], device=proposals.device))
+    return model
+
+
+def step_distance(got, want) -> dict:
+    """How far one ``native_step`` lies from another: the largest relative
+    loss difference, the largest gradient difference over the largest
+    gradient, the largest BN running-statistic difference, and the
+    largest parameter difference where Adam's update is well conditioned
+    (``DET_ILL_CONDITIONED``) and where it is not."""
+    losses, _, grads, _, after = got
+    want_l, _, want_g, root_v, want_after = want
+    g_max = max(float(g.abs().max()) for g in want_g.values())
+    out = {"loss": max(abs(losses[k] - w) / abs(w)
+                       for k, w in want_l.items() if w),
+           "grad": max(float((grads[k] - g).abs().max())
+                       for k, g in want_g.items()) / g_max,
+           "stats": max(float((after[k] - v).abs().max()) for k, v in
+                        want_after.items()
+                        if k.endswith((".bn.mean", ".bn.var"))),
+           "param": 0.0, "param_ill": 0.0}
+    for k, v in root_v.items():
+        d = (after[k] - want_after[k]).abs()
+        ok = (v >= DET_ILL_CONDITIONED) | (v == 0)
+        if ok.any():
+            out["param"] = max(out["param"], float(d[ok].max()))
+        if (~ok).any():
+            out["param_ill"] = max(out["param_ill"], float(d[~ok].max()))
+    return out
+
+
+def detector_card_vs_cpu(state: dict, root: Path, name_power: str,
+                         device: str = "cuda") -> dict:
+    """One f32 step of the ResNet-50-C4 trainer (512x512, batch 1) on the
+    card and on the CPU from equal state.  The proposals first: the share
+    of rows equal on both devices; where they differ, the card's step runs
+    again on the CPU's proposals.  Then the CPU's float32 noise floor: the
+    same step on the CPU with half its threads, on the same proposals
+    (only the summation order changes).  The card's losses, gradients and
+    BN statistics must lie within ``TRAIN_PARITY`` of the CPU's, or within
+    ``DET_NOISE_FACTOR`` times the floor where the floor itself is above
+    the bar; the parameters are printed (Adam's first update turns a
+    gradient near its rounding error into up to 2 lr either way)."""
+    batch = detector_sampler_batch(root, DET_TRAIN_PARITY_BATCH, 11)
+    t0 = time.perf_counter()
+    cpu = native_step(native_train_model(state, "cpu"), batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        floor = step_distance(native_step(with_proposals(
+            native_train_model(state, "cpu"), cpu[1]), batch, "cpu"), cpu)
+    finally:
+        torch.set_num_threads(threads)
+    card = native_step(native_train_model(state, device), batch, device)
+    equal_rows = float((card[1] == cpu[1]).all(-1).float().mean())
+    on_cpu_proposals = equal_rows < 1.0
+    if on_cpu_proposals:
+        card = native_step(with_proposals(native_train_model(state, device),
+                                          cpu[1].to(device)), batch, device)
+    d = step_distance(card, cpu)
+    bars = {k: max(TRAIN_PARITY[k], DET_NOISE_FACTOR * floor[k])
+            for k in ("loss", "grad", "stats")}
+    print(f"detector training card vs CPU, ResNet-50-C4 f32 step at "
+          f"{DET_TRAIN_SIZE}x{DET_TRAIN_SIZE}, batch "
+          f"{DET_TRAIN_PARITY_BATCH}: proposals equal on {equal_rows:.4f} "
+          f"of rows" + (" (compared on the CPU's proposals)"
+                        if on_cpu_proposals else "")
+          + f"; total loss {card[0]['total']:.7f} vs {cpu[0]['total']:.7f}; "
+          + "; ".join(f"{k} {d[k]:.3e} (CPU at {threads // 2} threads "
+                      f"against {threads}: {floor[k]:.3e}; bar "
+                      f"{bars[k]:.3e})" for k in bars)
+          + f"; parameters {d['param']:.3e} where Adam is well conditioned,"
+          f" {d['param_ill']:.3e} elsewhere (the floor {floor['param']:.3e},"
+          f" {floor['param_ill']:.3e}); CPU step {cpu_s:.2f} s | "
+          f"{name_power}", flush=True)
+    check(all(d[k] <= bars[k] for k in bars)
+          and max(d["param"], d["param_ill"]) <= 2 * DET_TRAIN_LR,
+          "detector training: card and CPU steps disagree")
+    return {"equal_proposals": equal_rows,
+            "on_cpu_proposals": on_cpu_proposals, "distance": d,
+            "floor": floor}
+
+
+def detector_training_phase(name_power: str, consts: dict = None,
+                            device: str = "cuda") -> dict:
+    """The detector training slice on the card, on the staged GT slide's
+    tree (written here unless the staged segment phase left it):
+    ``gseg-train-detector`` for the native ResNet-50-C4 in f32 and in
+    ``--bf16``, and ``--finetune_pb`` on ``consts`` (the e2e detector's
+    random OD-API constants) written as a frozen graph, each with K3
+    launched once a step; K3 against ``nms_plain`` on the real RPN
+    problems of a training batch at both training shapes; one f32 step
+    with and without K3 from equal state; the card's f32 step against the
+    CPU's; each checkpoint through ``cli/detect.load_backend`` detecting a
+    window batch on the card."""
+    root = WORK / "staged_segment"
+    shutil.rmtree(WORK / "det_train", ignore_errors=True)
+    t0 = time.perf_counter()
+    if not (root / "targets.txt").is_file():
+        staged_segment_tree(root)
+    if consts is None:
+        consts = random_od_api_consts(E2E_DETECTOR_SEED, device=device)
+    graph = WORK / "det_train" / "frozen_inference_graph.pb"
+    graph.parent.mkdir(parents=True)
+    load_graph_writer().write_graph(consts, str(graph))
+    setup_s = time.perf_counter() - t0
+    runs = {
+        "native f32": detector_train_run(
+            root, "native f32", [], DET_TRAIN_STEPS["native f32"],
+            name_power, device),
+        "native bf16": detector_train_run(
+            root, "native bf16", ["--bf16"], DET_TRAIN_STEPS["native bf16"],
+            name_power, device),
+        "od_api f32": detector_train_run(
+            root, "od_api f32", ["--finetune_pb", str(graph)],
+            DET_TRAIN_STEPS["od_api f32"], name_power, device),
+    }
+    first = (runs["native f32"]["first_losses"][-1],
+             runs["native bf16"]["first_losses"][-1])
+    bf16_rel = abs(first[1] - first[0]) / abs(first[0])
+    speedup = (runs["native f32"]["s_per_step"]
+               / runs["native bf16"]["s_per_step"])
+    print(f"detector training native bf16 against f32: {speedup:.2f}x the "
+          f"speed; step-0 total loss {first[1]:.5f} vs {first[0]:.5f} "
+          f"(rel {bf16_rel:.3e}, bar {TRAIN_BF16_RTOL}) | {name_power}",
+          flush=True)
+    check(bf16_rel <= TRAIN_BF16_RTOL, "detector training: bf16 loss")
+
+    from glomeruli_segmentation_tpu_torch.convert.detector_import import (
+        load_detector_checkpoint,
+    )
+    from glomeruli_segmentation_tpu_torch.convert.pb_import import (
+        load_od_api_checkpoint,
+    )
+    from glomeruli_segmentation_tpu_torch.models.od_api_frcnn import (
+        ODAPIConfig,
+        ODAPIFasterRCNN,
+    )
+    from glomeruli_segmentation_tpu_torch.models.od_api_frcnn import (
+        build_anchors as od_anchors,
+    )
+    from glomeruli_segmentation_tpu_torch.train.detector_driver import (
+        upload_batch,
+    )
+
+    # ---- K3 on the real RPN problems of one training batch ----
+    batch = detector_sampler_batch(root, DET_TRAIN_BATCH, 7)
+    x = upload_batch(batch, torch.device(device))[0]
+    state, _ = load_detector_checkpoint(str(runs["native f32"]["path"]))
+    params, n_cls, saved = load_od_api_checkpoint(
+        str(runs["od_api f32"]["path"]))
+    od_cfg = ODAPIConfig(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in saved.items()})
+    od_model = ODAPIFasterRCNN(params, od_cfg, "float32").to(device).train()
+    native = native_train_model(state, device).train()
+    with torch.no_grad(), tf32(False, False):
+        anchors = build_anchors(native.config).to(device)
+        obj, deltas = native.rpn_outputs(native.features(x))
+        problems = {"native": native.rpn_candidates(obj, deltas, anchors)}
+        od_anchor_t = od_anchors(od_cfg).to(device)
+        _, obj, deltas = od_model.first_stage(x)
+        problems["od_api"] = od_model.rpn_candidates(obj, deltas,
+                                                     od_anchor_t)
+    k3 = {}
+    for name, (boxes, scores) in problems.items():
+        p_, n_, k_, thr = K3_TRAIN_SHAPES[name]
+        check(tuple(scores.shape) == (p_, n_), f"{name} training NMS "
+              f"problem {tuple(scores.shape)}")
+        label = f"{name} training rpn"
+        k3[label] = nms_case(boxes.contiguous(), scores.contiguous(), k_, thr)
+        print_nms_case(label, k3[label], name_power)
+    del native, od_model, problems, obj, deltas
+
+    # ---- one f32 step with and without K3, from equal state ----
+    steps = {}
+    for kernel_nms in (True, False):
+        nms.launches = 0
+        steps[kernel_nms] = native_step(
+            native_train_model(state, device, kernel_nms), batch, device)
+        check(nms.launches == int(kernel_nms and device == "cuda"),
+              f"K3 launched "
+              f"{nms.launches} times in a kernel_nms={kernel_nms} step")
+    same_props = torch.equal(steps[True][1], steps[False][1])
+    nms_rel = max(abs(steps[True][0][k] - v) / abs(v)
+                  for k, v in steps[False][0].items() if v)
+    print(f"detector training f32 step with and without K3 from equal "
+          f"state: proposals bitwise equal {same_props}, largest loss rel "
+          f"difference {nms_rel:.3e} | {name_power}", flush=True)
+    check(same_props and nms_rel <= 1e-6,
+          "detector training: K3 and plain NMS steps differ")
+    del steps
+
+    parity = detector_card_vs_cpu(state, root, name_power, device)
+
+    # ---- each checkpoint through gseg-detect's loader, on the card ----
+    images = batch[0]
+    detected = {}
+    for name, overrides in (("native f32", None), ("od_api f32", {})):
+        backend = detect_cli.load_backend(str(runs[name]["path"].parent),
+                                          None, DET_TRAIN_BATCH,
+                                          od_api_overrides=overrides,
+                                          device=device)
+        nms.launches = 0
+        boxes, scores, classes, num = backend.detect_batch(images)
+        check(nms.launches == 2 * (device == "cuda"),
+              f"{name} checkpoint: K3 launched "
+              f"{nms.launches} times in one batch")
+        check(boxes.shape[0] == DET_TRAIN_BATCH and np.isfinite(
+            scores).all() and np.isfinite(boxes).all(),
+            f"{name} checkpoint: detections {boxes.shape}")
+        detected[name] = (type(backend).__name__, int(num.sum()))
+    print(f"detector training checkpoints detect a batch of "
+          f"{DET_TRAIN_BATCH} windows on the card (K3 launched 2 times "
+          f"each): " + ", ".join(f"{k} -> {b} {n} detections" for k, (b, n)
+                                  in detected.items())
+          + f"; tree and graph ready in {setup_s:.2f} s | {name_power}",
+          flush=True)
+    return {"runs": runs, "k3": k3, "parity": parity,
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "nms_rel": nms_rel}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=["detector_training"],
+                        help="build, then run this phase alone and print "
+                             "its lines, without the result lines")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3399,6 +3811,13 @@ def main() -> int:
           + ", ".join(reader_build.libraries()), flush=True)
 
     phase_done("build")
+    if only == "detector_training":
+        detector_training_phase(name_power)
+        phase_done("detector training")
+        print("chip_smoke phases (s): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in phase_s.items()) + f" | {name_power}",
+            flush=True)
+        return 0
 
     # ---- kernels K1 and K2 against their plain versions ----
     classes, p, q = 5, 2, 8
@@ -3599,6 +4018,8 @@ def main() -> int:
     phase_done("selftest")
     training = training_phase(name_power)
     phase_done("training")
+    det_training = detector_training_phase(name_power, e2e["consts"])
+    phase_done("detector training")
     check(wsi.python_fallbacks == 0 and native_reader.unavailable_reason
           is None, f"{wsi.python_fallbacks} slides opened with the Python "
           f"reader: {native_reader.unavailable_reason}")
@@ -3657,17 +4078,25 @@ def main() -> int:
                   e2e_launches=e2e["launches"][1],
                   serve_launches=served["launches"][1],
                   segformer_e2e_launches=segformer_e2e["launches"][1]),
-        dict(nms_entry("ResNet-50-C4 detector", k3, "rpn seeded",
-                       det_launches),
-             training_launches=training["launches"][2]),
+        dict(nms_entry("ResNet-50-C4 detector",
+                       {**k3, "native training rpn":
+                        det_training["k3"]["native training rpn"]},
+                       "rpn seeded", det_launches),
+             training_launches=training["launches"][2],
+             detector_training_launches=(
+                 det_training["launches"]["native f32"]
+                 + det_training["launches"]["native bf16"])),
         dict(nms_entry("OD-API frozen-graph detector",
-                       {**od_k3, **selftest["k3"]}, "od_api rpn proposals",
-                       od_launches),
+                       {**od_k3, **selftest["k3"], "od_api training rpn":
+                        det_training["k3"]["od_api training rpn"]},
+                       "od_api rpn proposals", od_launches),
              e2e_launches=e2e["launches"][2],
              serve_launches=served["launches"][2],
              segformer_e2e_launches=segformer_e2e["launches"][2],
              selftest_launches=selftest["launches"],
-             training_launches=training["launches"][2]),
+             training_launches=training["launches"][2],
+             detector_training_launches=det_training["launches"][
+                 "od_api f32"]),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

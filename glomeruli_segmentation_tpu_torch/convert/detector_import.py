@@ -1,5 +1,5 @@
-"""Detector weights: carry them across from the JAX package's Flax tree, read
-``detector.ckpt.pth``, and make random ones.
+"""Detector weights: carry them across from the JAX package's Flax tree and
+back, read and write ``detector.ckpt.pth``, and make random ones.
 
 The port's detector state is a flat dict of float32 tensors keyed by the
 port's module names, which follow the Flax tree:
@@ -13,7 +13,10 @@ port's module names, which follow the Flax tree:
   the stem's ``conv1``/``bn1``         -> ``conv1.conv``/``conv1.bn``
 
 :meth:`..models.faster_rcnn.FasterRCNN.load_state` folds every BN into its
-conv when the state is loaded.
+conv when the state is loaded (or keeps it, in the training form).
+:func:`flax_from_state_dict` is the way back, and
+:func:`save_detector_checkpoint` writes the checkpoint both packages'
+``gseg-detect`` read.
 """
 from __future__ import annotations
 
@@ -63,6 +66,62 @@ def state_dict_from_flax(variables: Mapping) -> StateDict:
             key, tensor = _leaf(path, value)
             out[key] = tensor
     return out
+
+
+def _flax_module(modules):
+    """The port's module names -> the Flax ones (the inverse of
+    ``_RENAME``): a bottleneck's ``c2.conv``/``c2.bn`` (its parent is a
+    ``block<i>``) and the stem's ``conv1.conv``/``conv1.bn``; the tiny
+    backbone's ``c2`` is a ``ConvBN`` of its own in both trees."""
+    back = {v: k for k, v in _RENAME.items()}
+    out, i = [], 0
+    while i < len(modules):
+        pair = ".".join(modules[i:i + 2])
+        bottleneck = i > 0 and modules[i - 1].startswith("block")
+        if pair in back and (modules[i] == "conv1" or bottleneck):
+            out.append(back[pair])
+            i += 2
+        else:
+            out.append(modules[i])
+            i += 1
+    return out
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's detector state -> the JAX package's ``FasterRCNN``
+    variables, ``{"params", "batch_stats"}`` with float32 numpy leaves
+    (conv kernels HWIO, Dense kernels (in, out)); the inverse of
+    :func:`state_dict_from_flax`."""
+    out: Dict = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        *modules, leaf = key.split(".")
+        v = np.asarray(value.detach().float().cpu().numpy(), np.float32)
+        collection = "params"
+        if leaf == "weight":
+            leaf = "kernel"
+            v = np.transpose(v, (2, 3, 1, 0)) if v.ndim == 4 else v.T
+        elif modules[-1] == "bn" and leaf in ("mean", "var"):
+            collection = "batch_stats"
+        node = out[collection]
+        for m in _flax_module(modules):
+            node = node.setdefault(m, {})
+        node[leaf] = np.array(v, order="C")
+    return out
+
+
+def save_detector_checkpoint(state: Mapping[str, torch.Tensor],
+                             config: FasterRCNNConfig, path: str) -> str:
+    """Write ``detector.ckpt.pth`` as the JAX package's trainer lays it out
+    (``{"variables": {"params", "batch_stats"}, "config": FasterRCNNConfig
+    fields}``), leaves as float32 CPU tensors, with ``torch.save`` (the zip
+    form, which the JAX package's ``load_torch_pickle`` reads too)."""
+    def tensors(tree):
+        return {k: tensors(v) if isinstance(v, Mapping)
+                else torch.from_numpy(v) for k, v in tree.items()}
+
+    torch.save({"variables": tensors(flax_from_state_dict(state)),
+                "config": dataclasses.asdict(config)}, path)
+    return path
 
 
 def load_detector_checkpoint(path: str
@@ -182,4 +241,45 @@ def random_detector_state(seed: int,
         mean, var = stats[name]
         state[f"{name}.bn.mean"] = mean.float()
         state[f"{name}.bn.var"] = var.float()
+    return state
+
+
+def _lecun_normal(rng: np.random.RandomState, shape, fan_in: int
+                  ) -> np.ndarray:
+    """Flax's default kernel init, ``variance_scaling(1, "fan_in",
+    "truncated_normal")``: a normal cut at two standard deviations, scaled
+    to variance 1 / fan_in."""
+    z = rng.randn(*shape)
+    out = np.abs(z) > 2
+    while out.any():
+        z[out] = rng.randn(int(out.sum()))
+        out = np.abs(z) > 2
+    return (z * (np.sqrt(1.0 / fan_in) / 0.87962566103423978)).astype(
+        np.float32)
+
+
+def init_detector_state(seed: int,
+                        config: FasterRCNNConfig = FasterRCNNConfig()
+                        ) -> StateDict:
+    """Fresh detector weights as the JAX package's ``model.init`` lays them
+    out, made from ``seed`` with numpy: conv and Dense kernels drawn like
+    Flax's default (LeCun truncated normal), biases zero, BN scale 1, bias
+    0, mean 0, var 1.  The draws follow the port's module order, so the
+    values are not the JAX package's for the same seed."""
+    rng = np.random.RandomState(seed)
+    model = FasterRCNN(config, train_form=True)
+    state: StateDict = {}
+    for name, m in model.named_modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            w = m.weight
+            state[f"{name}.weight"] = torch.from_numpy(_lecun_normal(
+                rng, tuple(w.shape), w[0].numel()))
+            if m.bias is not None:
+                state[f"{name}.bias"] = torch.zeros(w.shape[0])
+        elif isinstance(m, nn.BatchNorm2d):
+            c = m.num_features
+            state[f"{name}.scale"] = torch.ones(c)
+            state[f"{name}.bias"] = torch.zeros(c)
+            state[f"{name}.mean"] = torch.zeros(c)
+            state[f"{name}.var"] = torch.ones(c)
     return state

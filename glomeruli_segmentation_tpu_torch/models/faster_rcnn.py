@@ -1,5 +1,6 @@
-"""Faster R-CNN window detector (inference), ResNet-50-C4 or a tiny test
-backbone.
+"""Faster R-CNN window detector, ResNet-50-C4 or a tiny test backbone: the
+folded inference form, and with ``train_form=True`` the training form of
+the JAX package's ``FasterRCNN(train=True)``.
 
 Counterpart of ``glomeruli_segmentation_tpu/models/faster_rcnn.py``, with
 the same stages and output contract (normalized ``[ymin, xmin, ymax, xmax]``
@@ -14,6 +15,9 @@ boxes, scores, 1-based float classes, ``num_detections``).  What differs:
   :func:`..ops.nms.nms` (one K3 launch on the GPU), and the per-class
   second-stage NMS of all B x classes problems is one more.
 - Box math, softmax and NMS stay float32 whatever the compute type.
+- The proposals are made without a graph (``torch.no_grad``, the JAX
+  package's ``stop_gradient``), so training launches K3 once a step and
+  differentiates no NMS.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from ..ops.boxes import clip_boxes, decode_boxes, generate_anchors
 from ..ops.nms import gather_padded, nms, nms_plain, premask
 from ..ops.roi_align import crop_and_resize
 from .resnet import (ResNetBlock4, ResNetC4, TinyBackbone, TinyHead,
-                     fold_batchnorm)
+                     detector_state, fold_batchnorm, train_state_dict)
 
 NEG_PAD = -1e10
 
@@ -53,8 +57,10 @@ class FasterRCNNConfig:
     # image-net channel means for the resnet preprocessing (RGB)
     pixel_means: Tuple[float, float, float] = (123.68, 116.779, 103.939)
     # proposals per second-stage step; 0 = the largest chunk with
-    # B * chunk <= 1024.  Chunking bounds the live ROI crops and changes
-    # no value.
+    # B * chunk <= 1024.  Chunking bounds the live ROI crops.  At inference
+    # it changes no value; in training each chunk's BatchNorms normalise
+    # with that chunk's statistics and update the running statistics once
+    # per chunk, as the JAX package's chunks do.
     roi_chunk: int = 0
 
     @property
@@ -155,12 +161,15 @@ class RPNHead(nn.Module):
 class BoxHead(nn.Module):
     """Second stage: ROI crops -> class logits and box refinements."""
 
-    def __init__(self, in_ch: int, num_classes: int, backbone: str):
+    def __init__(self, in_ch: int, num_classes: int, backbone: str,
+                 train_form: bool = False):
         super().__init__()
         if backbone == "resnet50":
-            self.trunk_name, trunk = "block4", ResNetBlock4(in_ch)
+            self.trunk_name, trunk = "block4", ResNetBlock4(
+                in_ch, train_form=train_form)
         else:
-            self.trunk_name, trunk = "tiny_head", TinyHead(in_ch)
+            self.trunk_name, trunk = "tiny_head", TinyHead(
+                in_ch, train_form=train_form)
         self.add_module(self.trunk_name, trunk)
         self.cls = nn.Linear(trunk.out_channels, num_classes + 1)
         self.box = nn.Linear(trunk.out_channels, num_classes * 4)
@@ -180,26 +189,44 @@ class FasterRCNN(nn.Module):
     by default they go through :func:`..ops.nms.nms`, which launches the
     K3 kernel on a CUDA tensor.  The compute type is the parameters' type
     (``model.to(torch.bfloat16)``); box math stays float32.
+
+    ``train_form=True`` keeps every BatchNorm unfolded
+    (:class:`.resnet.ConvBN`): in train mode ``forward`` gives the JAX
+    package's ``FasterRCNN.__call__(train=True)``, batch statistics and
+    running-statistics updates included; train it in float32 (bf16 through
+    autocast).
     """
 
     def __init__(self, config: FasterRCNNConfig = FasterRCNNConfig(),
-                 kernel_nms: bool = True):
+                 kernel_nms: bool = True, train_form: bool = False):
         super().__init__()
         self.config = config
         self.kernel_nms = kernel_nms
+        self.train_form = train_form
         if config.backbone == "resnet50":
-            self.backbone = ResNetC4()
+            self.backbone = ResNetC4(train_form=train_form)
         else:
-            self.backbone = TinyBackbone()
+            self.backbone = TinyBackbone(train_form=train_form)
         feat_ch = self.backbone.out_channels
         self.rpn = RPNHead(feat_ch, config.num_anchors_per_cell)
-        self.box_head = BoxHead(feat_ch, config.num_classes, config.backbone)
+        self.box_head = BoxHead(feat_ch, config.num_classes, config.backbone,
+                                train_form=train_form)
 
     def load_state(self, state: Mapping[str, torch.Tensor]) -> "FasterRCNN":
-        """Load a state from ``convert/detector_import``, folding every BN
-        into its conv."""
-        self.load_state_dict(fold_batchnorm(state), strict=True)
+        """Load a state from ``convert/detector_import``: the inference form
+        folds every BN into its conv, the training form keeps them."""
+        if self.train_form:
+            self.load_state_dict(train_state_dict(state), strict=True)
+        else:
+            self.load_state_dict(fold_batchnorm(state), strict=True)
         return self
+
+    def detector_state(self) -> Dict[str, torch.Tensor]:
+        """The training form's weights and BN statistics as a detector state
+        (float32, on the CPU), the layout :meth:`load_state` reads."""
+        if not self.train_form:
+            raise ValueError("the inference form holds folded BatchNorms")
+        return detector_state(self.state_dict())
 
     def with_image_size(self, height: int, width: int) -> "FasterRCNN":
         """A view of this model for another window geometry: it shares
@@ -279,7 +306,10 @@ class FasterRCNN(nn.Module):
         cfg = self.config
         feats = self.features(images)
         rpn_obj, rpn_deltas = self.rpn_outputs(feats)
-        proposals, prop_scores = self.propose(rpn_obj, rpn_deltas, anchors)
+        # two-stage convention: no gradient through proposal generation
+        with torch.no_grad():
+            proposals, prop_scores = self.propose(rpn_obj, rpn_deltas,
+                                                  anchors)
         n, p = proposals.shape[:2]
         chunk = min(cfg.roi_chunk or max(1, 1024 // n), p)
         scores_parts, deltas_parts = [], []

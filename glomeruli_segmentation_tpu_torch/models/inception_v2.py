@@ -107,6 +107,12 @@ class ConvSame(nn.Conv2d):
         w = torch.from_numpy(np.asarray(p["w"]))
         self.assign(w.permute(3, 2, 0, 1), p["b"])
 
+    def tree(self) -> dict:
+        """The inverse of :meth:`load`: ``{"w": HWIO kernel, "b": bias}``,
+        float32 numpy."""
+        return {"w": as_numpy(self.weight.permute(2, 3, 1, 0)),
+                "b": as_numpy(self.bias)}
+
     def assign(self, w_oihw: torch.Tensor, b: np.ndarray = None) -> None:
         if tuple(w_oihw.shape) != tuple(self.weight.shape):
             raise ValueError(f"kernel {tuple(w_oihw.shape)} for a conv of "
@@ -115,6 +121,10 @@ class ConvSame(nn.Conv2d):
             self.weight.copy_(w_oihw)
             if b is not None:
                 self.bias.copy_(torch.from_numpy(np.asarray(b)))
+
+
+def as_numpy(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().float().cpu().numpy())
 
 
 def conv_like(p: Mapping, stride: int = 1) -> ConvSame:
@@ -137,6 +147,15 @@ class SeparableStem(nn.Module):
         self.depthwise.assign(depthwise_weight(torch.from_numpy(
             np.asarray(p["dw"]))))
         self.pointwise.load({"w": p["pw"], "b": p["b"]})
+
+    def tree(self) -> dict:
+        """The inverse of :meth:`load`: ``{"dw": (H, W, IC, M), "pw": HWIO,
+        "b"}``, float32 numpy."""
+        w = self.depthwise.weight                      # (IC * M, 1, H, W)
+        ic = self.depthwise.groups
+        dw = w.reshape(ic, w.shape[0] // ic, *w.shape[2:]).permute(2, 3, 0, 1)
+        pw = self.pointwise.tree()
+        return {"dw": as_numpy(dw), "pw": pw["w"], "b": pw["b"]}
 
     def forward(self, x):
         return F.relu(self.pointwise(self.depthwise(x)))
@@ -260,3 +279,10 @@ def load_tree(module: nn.Module, p: Mapping) -> None:
             child.load(p[name])
         else:
             load_tree(child, p[name])
+
+
+def tree_of(module: nn.Module) -> dict:
+    """The inverse of :func:`load_tree`: ``module``'s convs as a parameter
+    tree keyed by module names, float32 numpy leaves."""
+    return {name: child.tree() if isinstance(child, (ConvSame, SeparableStem))
+            else tree_of(child) for name, child in module.named_children()}

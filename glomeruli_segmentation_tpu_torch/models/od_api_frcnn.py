@@ -20,9 +20,12 @@ Counterpart of ``glomeruli_segmentation_tpu/models/od_api_frcnn.py``:
 What differs from the JAX package: activations are NCHW in ``channels_last``
 memory; both NMS stages run batched, one :func:`..ops.nms.nms` call for the
 RPN problems of all windows and one for the second stage's windows x
-classes (two K3 launches a batch on the GPU); ``train_outputs`` is not
-ported.  Box math, softmax and NMS stay float32 whatever the compute type,
-and so do the FC heads, as in the JAX package.
+classes (two K3 launches a batch on the GPU).  Box math, softmax and NMS
+stay float32 whatever the compute type, and so do the FC heads, as in the
+JAX package.  For fine-tuning (``train/od_api_finetune.py``),
+:meth:`ODAPIFasterRCNN.train_outputs` gives both stages' raw outputs (one
+K3 launch, no graph through the proposals) and :meth:`ODAPIFasterRCNN.
+params_tree` the parameters back in the JAX package's tree.
 """
 from __future__ import annotations
 
@@ -39,8 +42,8 @@ from ..ops.nms import gather_padded
 from ..ops.roi_align import crop_and_resize
 from .faster_rcnn import (normalize_boxes, select_detections, softmax,
                           stage_nms, top_k)
-from .inception_v2 import (ClassifierFeatures, ProposalFeatures, conv_like,
-                           load_tree, max_pool_same)
+from .inception_v2 import (ClassifierFeatures, ProposalFeatures, as_numpy,
+                           conv_like, load_tree, max_pool_same, tree_of)
 
 NEG_PAD = -1e10
 
@@ -164,6 +167,19 @@ class ODAPIFasterRCNN(nn.Module):
                 fc.bias.copy_(torch.from_numpy(np.asarray(tree[name]["b"])))
         return self
 
+    def params_tree(self) -> Dict:
+        """The parameters as the tree :meth:`load_params` reads (the JAX
+        package's layout: HWIO kernels, the stem's depthwise ``(H, W, IC,
+        M)``, FC ``w`` as ``(C, K)``), float32 numpy leaves."""
+        tree = {"first": tree_of(self.first), "second": tree_of(self.second)}
+        for name in ("rpn_conv", "rpn_cls", "rpn_box"):
+            tree[name] = getattr(self, name).tree()
+        for name in ("fc_cls", "fc_box"):
+            fc = getattr(self, name)
+            tree[name] = {"w": as_numpy(fc.weight.t()),
+                          "b": as_numpy(fc.bias)}
+        return tree
+
     def with_image_size(self, height: int, width: int) -> "ODAPIFasterRCNN":
         """A view of this model for another resized window shape: it shares
         every parameter and differs only in ``config.image_size``."""
@@ -278,6 +294,23 @@ class ODAPIFasterRCNN(nn.Module):
                             cfg.second_score_threshold)
         return select_detections(boxes, scores, keep, proposals.shape[0],
                                  *cfg.image_size)
+
+    def train_outputs(self, images: torch.Tensor, anchors: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Both stages' raw outputs in the contract of
+        :func:`..train.detector_train.detector_loss`: ``rpn_objectness``,
+        ``rpn_deltas``, ``proposals`` and ``proposal_scores`` (made without
+        a graph: no gradient through proposal generation), ``class_scores``,
+        ``box_deltas``.  BN is folded at import, so fine-tuning updates the
+        folded conv scale and shift with frozen normalisation
+        statistics."""
+        feats, obj, deltas = self.first_stage(images)
+        with torch.no_grad():
+            proposals, prop_scores = self.propose(obj, deltas, anchors)
+        cls_logits, box_enc = self.box_classifier(feats, proposals)
+        return {"rpn_objectness": obj, "rpn_deltas": deltas,
+                "proposals": proposals, "proposal_scores": prop_scores,
+                "class_scores": cls_logits, "box_deltas": box_enc}
 
     @torch.no_grad()
     def detect(self, images: torch.Tensor, anchors: torch.Tensor

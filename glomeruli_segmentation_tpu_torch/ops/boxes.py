@@ -4,7 +4,8 @@ anchor deltas the Faster R-CNN ``(ty, tx, th, tw)`` with scale factors
 
 Counterpart of ``glomeruli_segmentation_tpu/ops/boxes.py``; every function
 does its arithmetic in the same order, in the boxes' type (float32 on the
-detector's path).
+detector's path).  :func:`encode_boxes` gives the detector trainers their
+regression targets; :func:`boxes_iou` also takes batches of boxes.
 """
 from __future__ import annotations
 
@@ -20,13 +21,34 @@ def boxes_area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def boxes_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU. a: (N, 4), b: (M, 4) -> (N, M)."""
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    """Pairwise IoU. a: (..., N, 4), b: (..., M, 4) -> (..., N, M); the
+    leading axes broadcast."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = torch.clamp_min(rb - lt, 0)
     inter = wh[..., 0] * wh[..., 1]
-    union = boxes_area(a)[:, None] + boxes_area(b)[None, :] - inter
+    union = boxes_area(a)[..., :, None] + boxes_area(b)[..., None, :] - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(union))
+
+
+def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor,
+                 scales=(10.0, 10.0, 5.0, 5.0)) -> torch.Tensor:
+    """Ground-truth boxes -> anchor-relative deltas (ty, tx, th, tw); the
+    leading axes broadcast."""
+    ah = anchors[..., 2] - anchors[..., 0]
+    aw = anchors[..., 3] - anchors[..., 1]
+    acy = anchors[..., 0] + 0.5 * ah
+    acx = anchors[..., 1] + 0.5 * aw
+    bh = boxes[..., 2] - boxes[..., 0]
+    bw = boxes[..., 3] - boxes[..., 1]
+    bcy = boxes[..., 0] + 0.5 * bh
+    bcx = boxes[..., 1] + 0.5 * bw
+    eps = 1e-8
+    ty = (bcy - acy) / (ah + eps) * scales[0]
+    tx = (bcx - acx) / (aw + eps) * scales[1]
+    th = torch.log((bh + eps) / (ah + eps)) * scales[2]
+    tw = torch.log((bw + eps) / (aw + eps)) * scales[3]
+    return torch.stack([ty, tx, th, tw], dim=-1)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,

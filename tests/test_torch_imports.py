@@ -49,8 +49,10 @@ def test_port_and_chip_smoke_import_without_jax():
     # training slice's (data/transforms, data/dataset, data/load_data,
     # train, train/criteria, train/batch_norm, train/espnet_train,
     # train/segformer_train, cli/train, cli/create_dataset_txt,
-    # cli/segformer_train)
-    assert count >= 87, proc.stdout
+    # cli/segformer_train) and the detector training slice's
+    # (train/detector_train, train/detector_driver, train/od_api_finetune,
+    # cli/train_detector)
+    assert count >= 91, proc.stdout
 
 
 def test_native_reader_builds_from_the_ports_own_files():
