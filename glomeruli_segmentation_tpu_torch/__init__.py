@@ -39,7 +39,11 @@ def readback(out: torch.Tensor):
 
 
 def read_host(handle) -> np.ndarray:
-    """A :func:`readback` handle as a numpy array."""
+    """A :func:`readback` handle as a numpy array; a list of handles (the
+    shards of a batch over a mesh's data axis) as their concatenation."""
+    if isinstance(handle, list):
+        parts = [read_host(h) for h in handle]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
     if isinstance(handle, tuple):
         host, done = handle
         done.synchronize()

@@ -11,8 +11,9 @@ flags and defaults (``--staining`` defaults to ``OPT_PAM`` and
 slides the timing log holds.  ``--model`` is a directory holding
 ``detector.ckpt.pth``, ``od_api_detector.ckpt.pth`` or the reference's
 ``frozen_inference_graph.pb`` (:func:`load_backend`, shared with the other
-commands).  ``--data_parallel`` other than 0 raises: the window mesh is not
-ported.
+commands).  ``--data_parallel N`` splits each window batch over N devices
+(``-1``: all visible cards); ``main(argv, device, devices)`` takes the
+mesh's devices (for tests N logical ``cpu`` devices).
 """
 import argparse
 import os
@@ -56,13 +57,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cv2 half-pixel keep-aspect resize instead of "
                              "the frozen graph's TF1 scale*i sampling")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="shard window batches over an N-device mesh "
+                             "(0 = single device, -1 = all devices); "
+                             "batch_size must be a multiple of N")
     return parser
 
 
 def load_backend(model_dir: str, model_name: str = None, batch_size: int = 8,
                  od_api_overrides=None, data_parallel: int = 0,
-                 device="cuda"):
+                 device="cuda", devices=None):
     """Resolve a detector backend from ``model_dir``.
 
     ``model_name=None`` auto-discovers in precedence order native checkpoint
@@ -70,11 +73,9 @@ def load_backend(model_dir: str, model_name: str = None, batch_size: int = 8,
     (``od_api_detector.ckpt.pth``) > ``frozen_inference_graph.pb``.  An
     explicit ``model_name`` loads exactly that file (dispatch by basename),
     so a fine-tuned checkpoint written next to the downloaded ``.pb`` cannot
-    silently preempt an explicitly requested graph.  ``data_parallel``
-    other than 0 raises: the window mesh is not ported."""
-    if data_parallel:
-        raise SystemExit(f"data_parallel={data_parallel}: the data-parallel "
-                         "detector mesh is not ported")
+    silently preempt an explicitly requested graph.  ``data_parallel`` and
+    ``devices``: the backend's window mesh (``pipeline/detect.py``)."""
+    mesh = {"data_parallel": data_parallel, "devices": devices}
     explicit = model_name is not None
     if explicit:
         requested = os.path.join(model_dir, model_name)
@@ -97,7 +98,8 @@ def load_backend(model_dir: str, model_name: str = None, batch_size: int = 8,
         from ..pipeline.detect import TorchDetectorBackend
 
         state, config = load_detector_checkpoint(native_ckpt)
-        return TorchDetectorBackend(state, config, batch_size, device=device)
+        return TorchDetectorBackend(state, config, batch_size, device=device,
+                                    **mesh)
 
     od_ckpt = (requested if explicit
                else os.path.join(model_dir, "od_api_detector.ckpt.pth"))
@@ -115,7 +117,7 @@ def load_backend(model_dir: str, model_name: str = None, batch_size: int = 8,
         merged.update(od_api_overrides or {})
         return ODAPIDetectorBackend(params=params, num_classes=num_classes,
                                     batch_size=batch_size, device=device,
-                                    **merged)
+                                    **mesh, **merged)
 
     pb_path = os.path.join(model_dir, model_name)
     if pb_ok and os.path.isfile(pb_path):
@@ -126,7 +128,7 @@ def load_backend(model_dir: str, model_name: str = None, batch_size: int = 8,
 
         try:
             return ODAPIDetectorBackend(pb_path, batch_size, device=device,
-                                        **(od_api_overrides or {}))
+                                        **mesh, **(od_api_overrides or {}))
         except UnmappedWeightsError as e:
             raise SystemExit(
                 f"{pb_path}: not an OD-API inception_v2 Faster R-CNN "
@@ -135,8 +137,9 @@ def load_backend(model_dir: str, model_name: str = None, batch_size: int = 8,
     raise SystemExit(f"no detector model found in {model_dir}")
 
 
-def main(argv=None, device="cuda"):
-    """``device="cpu"`` runs the detector on the CPU (for tests)."""
+def main(argv=None, device="cuda", devices=None):
+    """``device="cpu"`` runs the detector on the CPU (for tests);
+    ``devices`` are the window mesh's under ``--data_parallel``."""
     args = build_parser().parse_args(argv)
     from ..pipeline.detect import GlomusDetector
 
@@ -147,7 +150,7 @@ def main(argv=None, device="cuda"):
                           "max_proposals": args.max_proposals,
                           "device_resize": args.device_resize,
                           "compat_tf1_resize": not args.cv2_resize},
-        data_parallel=args.data_parallel, device=device)
+        data_parallel=args.data_parallel, device=device, devices=devices)
     detector = GlomusDetector(args.data_category, args.target_list,
                               args.data_dir, args.output_dir,
                               args.output_file_ext, args.window_size,

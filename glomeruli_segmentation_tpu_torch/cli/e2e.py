@@ -10,16 +10,15 @@ Counterpart of ``glomeruli_segmentation_tpu/cli/e2e.py`` (``gseg-e2e``),
 with the same flags and defaults: per slide it emits the merged-detection
 CSV, the timing log, the per-crop labelme JSONs (with
 ``--segformer_checkpoint``, the GTCS model family's mode-'L' label PNGs)
-and the stitched ``{patient}_pred.jpg``.  Flags whose machinery is not
-ported raise ``SystemExit`` naming themselves when set to anything but
-their default: ``--mesh auto`` on more than one card, ``--data_parallel``,
-``--fold_parallel``, ``--host_resize``, ``--pack_output`` and ``--engine
-xla``.
+and the stitched ``{patient}_pred.jpg``.  The mesh flags
+(``--data_parallel``, ``--fold_parallel``, ``--mesh auto`` on more than
+one card) build a one-process device mesh (:mod:`..parallel.mesh`) as the
+JAX command does; ``main(argv, device, devices)`` takes the mesh's devices
+(default: the visible devices of ``device``'s type; for tests N logical
+``cpu`` devices).
 """
 import argparse
 import os
-
-import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,21 +70,30 @@ def build_parser() -> argparse.ArgumentParser:
                              "frozen_inference_graph.pb)")
     parser.add_argument("--engine", default="auto",
                         choices=["auto", "xla", "fused", "packed"],
-                        help="'fused' loops over folds through the fused "
-                             "ESP block kernel; 'packed' runs all folds in "
-                             "one block-diagonal forward; 'auto' (default) "
-                             "picks packed below batch 96, fused above; "
-                             "'xla' is not ported")
+                        help="'xla' runs the plain per-fold ESPNet; 'fused' "
+                             "loops over folds through the fused ESP block "
+                             "kernel; 'packed' runs all folds in one "
+                             "block-diagonal forward; 'auto' (default) "
+                             "picks packed below batch 96, fused above")
     parser.add_argument("--precision", default="default",
                         choices=["default", "high", "highest"])
     parser.add_argument("--mesh", default="auto", choices=["auto", "off"],
-                        help="'auto' (default): on a multi-card host, a "
-                             "fold x data mesh (not ported: raises there); "
-                             "one card resolves to no mesh")
+                        help="'auto' (default): on a multi-card host with "
+                             "no explicit --fold_parallel/--data_parallel "
+                             "and no explicit --engine, resolve the fold x "
+                             "data mesh from the card and fold counts (fold "
+                             "axis first) and data-shard the detector's "
+                             "window batches; one card resolves to no mesh. "
+                             "'off': only explicit flags build a mesh")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="shard detection windows and crop batches over "
+                             "an N-device mesh (0 = off, -1 = all devices)")
     parser.add_argument("--fold_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="shard the ensemble's FOLDS over N devices "
+                             "(-1 = all devices left after --data_parallel; "
+                             "composes into a fold x data mesh); the ordered "
+                             "combine is bit-identical to the sequential "
+                             "fold loop")
     parser.add_argument("--min_dimension", type=int, default=600)
     parser.add_argument("--max_dimension", type=int, default=1024)
     parser.add_argument("--max_proposals", type=int, default=300)
@@ -100,11 +108,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="crop batch transfer layout: 'flat' ships one "
                              "ragged byte buffer (the padded view rebuilt "
                              "on the card, byte-identical); 'padded' ships "
-                             "the max-shape batch; 'auto' is flat")
+                             "the max-shape batch (required under a mesh and "
+                             "by --host_resize); 'auto' picks flat on one "
+                             "device")
     parser.add_argument("--host_resize", action="store_true",
-                        help="not ported")
+                        help="cv2-resize crops to the ESPNet input on the "
+                             "host before the upload (O(net input) bytes "
+                             "per crop instead of O(crop))")
     parser.add_argument("--pack_output", action="store_true",
-                        help="not ported")
+                        help="pack the full-resolution class-map readbacks "
+                             "(labelme-JSON path) 3 px/byte before the "
+                             "device->host copy; exact")
     parser.add_argument("--no_overlay", action="store_true")
     parser.add_argument("--slide_pipeline", default="auto",
                         choices=["auto", "on", "off"],
@@ -123,51 +137,48 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_ported(args) -> None:
-    """Raise ``SystemExit`` naming the ESPNet-only flags set beside
-    ``--segformer_checkpoint`` (the JAX package's message), then naming
-    every flag set to a value whose machinery the port does not have."""
-    if args.segformer_checkpoint:
-        # the ESPNet-ensemble-only flags have no effect on the SegFormer
-        # path: name the conflicting ones instead of ignoring them
-        ignored = [name for name, val, default in (
-            ("--segmentation_weights_dir", args.segmentation_weights_dir,
-             None),
-            ("--folds", tuple(args.folds), (1, 2, 3, 4, 5)),
-            ("--engine", args.engine, "auto"),
-            ("--precision", args.precision, "default"),
-            ("--transfer", args.transfer, "auto"),
-            ("--host_resize", args.host_resize, False),
-            ("--pack_output", args.pack_output, False),
-            ("--fold_parallel", args.fold_parallel, 0),
-        ) if val != default]
-        if ignored:
-            raise SystemExit(
-                "these flags apply only to the 5-fold ESPNet ensemble "
-                "and conflict with --segformer_checkpoint: "
-                + ", ".join(ignored))
-    unported = [name for name, val, default in (
-        ("--data_parallel", args.data_parallel, 0),
-        ("--fold_parallel", args.fold_parallel, 0),
-        ("--host_resize", args.host_resize, False),
-        ("--pack_output", args.pack_output, False),
-    ) if val != default]
-    if args.engine == "xla":
-        unported.append("--engine xla")
-    if unported:
-        raise SystemExit("not ported: " + ", ".join(unported))
-
-
 def resolve_mesh_policy(args, n_devices: int) -> None:
-    """``--mesh auto`` (default) resolves a fold x data mesh on a host with
-    more than one card when no layout flag and no explicit engine is given;
-    the port has no mesh, so that case raises.  One card resolves to no
-    mesh, as in the JAX package."""
-    if (args.mesh == "auto" and n_devices > 1 and args.engine == "auto"
-            and not (args.fold_parallel or args.data_parallel
-                     or args.segformer_checkpoint)):
-        raise SystemExit(f"--mesh auto on {n_devices} cards: the fold x data "
-                         "mesh is not ported; pass --mesh off")
+    """``--mesh auto`` (default): fill in ``args.fold_parallel`` and
+    ``args.data_parallel`` from the device and fold counts when neither is
+    set (:func:`..parallel.mesh.resolve_auto_mesh`).  Explicit flags win;
+    an explicit ``--engine`` and the SegFormer path keep their own layout;
+    one device resolves to no mesh.  The detector's window batches get
+    their own data axis, sized to divide their batch.  Call before
+    ``load_backend``.  Mutates ``args``."""
+    if getattr(args, "mesh", "off") != "auto":
+        return
+    if args.fold_parallel or args.data_parallel:
+        return  # the operator picked a layout
+    if args.engine != "auto":
+        return  # an explicit engine pins its own (one-device) path
+    if args.segformer_checkpoint:
+        return
+    from ..parallel.mesh import auto_data_parallel, resolve_auto_mesh
+
+    n = n_devices
+    fold, data = resolve_auto_mesh(len(args.folds), args.seg_batch_size,
+                                   n_devices=n)
+    if fold:
+        args.fold_parallel = fold
+        args.data_parallel = data if data > 1 else 0
+        print(f"--mesh auto: {n} devices -> fold x data = {fold} x "
+              f"{max(data, 1)} (override with --fold_parallel/"
+              f"--data_parallel, disable with --mesh off)")
+    elif data > 1:
+        # one fold: pure data parallelism
+        args.data_parallel = data
+        print(f"--mesh auto: {n} devices -> data parallel x {data}")
+    # the detector's window batches ride their own data mesh, sized to
+    # divide ITS batch
+    det_dp = auto_data_parallel(args.batch_size, n_devices=n)
+    if det_dp:
+        args.detector_data_parallel = det_dp
+
+
+def detector_data_parallel(args) -> int:
+    """The detector's data-axis size: the shared --data_parallel flag,
+    unless --mesh auto resolved a detector-specific one."""
+    return getattr(args, "detector_data_parallel", 0) or args.data_parallel
 
 
 def resolve_slide_pipeline(args) -> bool:
@@ -189,14 +200,48 @@ def resolve_slide_pipeline(args) -> bool:
     return mode == "on"
 
 
-def build_pipeline(args, backend, device="cuda"):
-    """Flags -> :class:`..pipeline.e2e.FusedEndToEnd` on ``device`` for
-    either model family: the 5-fold ESPNet ensemble, or SegFormer/GTCS with
-    ``--segformer_checkpoint``.  Shared with ``gseg-serve``."""
+def build_pipeline(args, backend, device="cuda", devices=None):
+    """Flags -> :class:`..pipeline.e2e.FusedEndToEnd` on ``device`` (or the
+    mesh of ``devices``) for either model family: the 5-fold ESPNet
+    ensemble, or SegFormer/GTCS with ``--segformer_checkpoint``.  Shared
+    with ``gseg-serve``."""
+    from ..parallel.mesh import make_fold_mesh, make_mesh, visible_devices
     from ..pipeline.e2e import FusedEndToEnd
     from ..pipeline.fused import EnsembleConfig, EnsembleSegmenter
 
-    check_ported(args)
+    fold_parallel = getattr(args, "fold_parallel", 0)
+    if args.segformer_checkpoint:
+        # the ESPNet-ensemble-only flags have no effect on the SegFormer
+        # path: name the conflicting ones instead of ignoring them, before
+        # any mesh is built
+        ignored = [name for name, val, default in (
+            ("--segmentation_weights_dir", args.segmentation_weights_dir,
+             None),
+            ("--folds", tuple(args.folds), (1, 2, 3, 4, 5)),
+            ("--engine", args.engine, "auto"),
+            ("--precision", args.precision, "default"),
+            ("--transfer", args.transfer, "auto"),
+            ("--host_resize", args.host_resize, False),
+            ("--pack_output", args.pack_output, False),
+            ("--fold_parallel", fold_parallel, 0),
+        ) if val != default]
+        if ignored:
+            raise SystemExit(
+                "these flags apply only to the 5-fold ESPNet ensemble "
+                "and conflict with --segformer_checkpoint: "
+                + ", ".join(ignored))
+    if devices is None:
+        devices = visible_devices(device)
+    mesh = None
+    if fold_parallel:
+        if args.engine != "auto":
+            raise SystemExit("--fold_parallel selects the fold-parallel "
+                             "engine; drop --engine")
+        mesh = make_fold_mesh(fold_parallel, args.data_parallel,
+                              args.seg_batch_size, devices=devices)
+    elif args.data_parallel:
+        mesh = make_mesh(None if args.data_parallel < 0
+                         else args.data_parallel, devices=devices)
     if args.segformer_checkpoint:
         from ..palette import GTCS_PALETTE
         from ..pipeline.fused_segformer import (SegformerSlideConfig,
@@ -209,7 +254,7 @@ def build_pipeline(args, backend, device="cuda"):
             state_dict, SegformerSlideConfig(
                 num_labels=args.num_labels or ckpt_labels,
                 input_size=args.input_size,
-                batch_size=args.seg_batch_size), device=device)
+                batch_size=args.seg_batch_size), device=device, mesh=mesh)
         return FusedEndToEnd(
             backend, data_category=args.data_category,
             window_size=args.window_size, overlap_ratio=args.overlap_ratio,
@@ -227,7 +272,8 @@ def build_pipeline(args, backend, device="cuda"):
                        batch_size=args.seg_batch_size,
                        precision=args.precision,
                        pack_output=args.pack_output),
-        engine=args.engine, device=device)
+        mesh=mesh, engine="fold_parallel" if fold_parallel else args.engine,
+        device=device)
     return FusedEndToEnd(
         backend, ensemble, data_category=args.data_category,
         window_size=args.window_size, overlap_ratio=args.overlap_ratio,
@@ -237,17 +283,20 @@ def build_pipeline(args, backend, device="cuda"):
         host_resize=args.host_resize, transfer=args.transfer)
 
 
-def main(argv=None, device="cuda"):
-    """``device="cpu"`` runs every model on the CPU (for tests)."""
+def main(argv=None, device="cuda", devices=None):
+    """``device="cpu"`` runs every model on the CPU (for tests);
+    ``devices`` are the mesh's (default: the visible devices of
+    ``device``'s type)."""
     args = build_parser().parse_args(argv)
+    from ..parallel.mesh import visible_devices
     from ..pipeline.e2e import FusedEndToEnd
     from ..utils.glomus_handler import GlomusHandler
     from ..utils.target_list import read_target_list
     from .detect import load_backend
 
-    check_ported(args)
-    resolve_mesh_policy(args, torch.cuda.device_count()
-                        if torch.device(device).type == "cuda" else 1)
+    if devices is None:
+        devices = visible_devices(device)
+    resolve_mesh_policy(args, len(devices))
     backend = load_backend(
         args.model, args.model_name, args.batch_size,
         od_api_overrides={"min_dimension": args.min_dimension,
@@ -255,8 +304,9 @@ def main(argv=None, device="cuda"):
                           "max_proposals": args.max_proposals,
                           "device_resize": args.device_resize,
                           "compat_tf1_resize": not args.cv2_resize},
-        data_parallel=args.data_parallel, device=device)
-    pipe = build_pipeline(args, backend, device=device)
+        data_parallel=detector_data_parallel(args), device=device,
+        devices=devices)
+    pipe = build_pipeline(args, backend, device=device, devices=devices)
 
     staining_dir = GlomusHandler.get_staining_type(args.data_category)
     json_dir = (None if args.no_json

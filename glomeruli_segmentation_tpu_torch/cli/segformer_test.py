@@ -8,10 +8,11 @@ the GPU.
 
 Counterpart of ``glomeruli_segmentation_tpu/cli/segformer_test.py``, with
 the same flags and defaults (the flag surface of
-``module/SegFormer/test/test.py:175-206``).  ``--data_parallel`` other than
-0 raises: the crop-batch mesh is not ported.  ``main(argv,
+``module/SegFormer/test/test.py:175-206``).  ``--data_parallel N`` splits
+each crop batch over N devices (``-1``: all visible cards).  ``main(argv,
 device="cuda")`` runs on the card and raises without one;
-``device="cpu"`` runs on the CPU.
+``device="cpu"`` runs on the CPU, and ``devices`` gives the mesh's devices
+(for tests: N logical ``cpu`` devices).
 """
 import argparse
 
@@ -38,12 +39,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--detected_mode", type=int, default=0)
     parser.add_argument("--input_size", type=int, default=512)
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="split crop batches over an N-device mesh "
+                             "(0 = one device, -1 = all devices); "
+                             "batch_size must be a multiple of N")
     return parser
 
 
-def main(argv=None, device="cuda"):
-    run_segformer_test(build_parser().parse_args(argv), device=device)
+def main(argv=None, device="cuda", devices=None):
+    run_segformer_test(build_parser().parse_args(argv), device=device,
+                       devices=devices)
 
 
 if __name__ == "__main__":

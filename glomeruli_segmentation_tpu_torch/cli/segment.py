@@ -10,9 +10,12 @@ flags and defaults: the public flag surface of
 ``--skip_existing``, ``--fast``, ``--precision`` and ``--engine``.
 ``--engine fused`` runs the level-3 ESP blocks through K1; ``--precision``
 ``highest`` and ``high`` keep TF32 off, ``default`` turns it on.
-``--gpu_id`` is accepted and ignored.  ``--data_parallel`` other than 0 and
-``--pack_output`` raise: neither is ported.  ``main(argv, device="cuda")``
-runs on the card and raises without one; ``device="cpu"`` runs on the CPU.
+``--gpu_id`` is accepted and ignored.  ``--data_parallel N`` splits each
+crop batch over N devices (the ``xla`` engine only; ``-1``: all visible
+cards), ``--pack_output`` packs the class-map readback 3 px/byte.
+``main(argv, device="cuda")`` runs on the card and raises without one;
+``device="cpu"`` runs on the CPU, and ``devices`` gives the mesh's devices
+(for tests: N logical ``cpu`` devices).
 """
 from argparse import ArgumentParser
 
@@ -72,17 +75,20 @@ def build_parser() -> ArgumentParser:
                         help="'fused' runs the level-3 ESP blocks through "
                              "the fused kernel; 'xla' is the plain model")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="split crop batches over an N-device mesh "
+                             "(0 = one device, -1 = all devices); "
+                             "batch_size must be a multiple of N")
     parser.add_argument("--pack_output", action="store_true",
-                        help="not ported: raises")
+                        help="pack class-map readbacks 3 px/byte (base-"
+                             "classes) before the device->host copy; exact")
     return parser
 
 
-def main(argv=None, device="cuda"):
+def main(argv=None, device="cuda", devices=None):
     args = build_parser().parse_args(argv)
     if args.overlay:
         args.colored = True
-    run_segment(args, device=device)
+    run_segment(args, device=device, devices=devices)
 
 
 if __name__ == "__main__":

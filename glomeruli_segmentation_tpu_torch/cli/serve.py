@@ -8,8 +8,8 @@ Counterpart of ``glomeruli_segmentation_tpu/cli/serve.py``, with the same
 flags and defaults.  ``gseg-e2e`` pays CUDA start and model load per
 invocation; ``gseg-serve`` pays them once and then processes slides as job
 tickets arrive in a spool directory (see ``pipeline/serve.py`` for the
-ticket contract).  Artifacts per slide are identical to ``gseg-e2e``'s, and
-the flags ``gseg-e2e`` does not port raise here too.
+ticket contract).  Artifacts per slide are identical to ``gseg-e2e``'s,
+and so are the mesh flags and ``main``'s ``devices``.
 
 Submit work::
 
@@ -22,8 +22,6 @@ Stop the server::
 """
 import argparse
 import os
-
-import torch
 
 from .e2e import build_parser as build_e2e_parser
 
@@ -93,21 +91,24 @@ def _argv_with_max_slides(argv, remaining: int):
     return out + ["--max_slides", str(remaining)]
 
 
-def main(argv=None, device="cuda"):
-    """``device="cpu"`` runs every model on the CPU (for tests)."""
+def main(argv=None, device="cuda", devices=None):
+    """``device="cpu"`` runs every model on the CPU (for tests);
+    ``devices`` are the mesh's (default: the visible devices of
+    ``device``'s type)."""
     import sys
 
     raw_argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
 
+    from ..parallel.mesh import visible_devices
     from ..pipeline.serve import SlideServer
     from .detect import load_backend
-    from .e2e import (build_pipeline, check_ported, resolve_mesh_policy,
-                      resolve_slide_pipeline)
+    from .e2e import (build_pipeline, detector_data_parallel,
+                      resolve_mesh_policy, resolve_slide_pipeline)
 
-    check_ported(args)
-    resolve_mesh_policy(args, torch.cuda.device_count()
-                        if torch.device(device).type == "cuda" else 1)
+    if devices is None:
+        devices = visible_devices(device)
+    resolve_mesh_policy(args, len(devices))
     backend = load_backend(
         args.model, args.model_name, args.batch_size,
         od_api_overrides={"min_dimension": args.min_dimension,
@@ -115,8 +116,9 @@ def main(argv=None, device="cuda"):
                           "max_proposals": args.max_proposals,
                           "device_resize": args.device_resize,
                           "compat_tf1_resize": not args.cv2_resize},
-        data_parallel=args.data_parallel, device=device)
-    pipe = build_pipeline(args, backend, device=device)
+        data_parallel=detector_data_parallel(args), device=device,
+        devices=devices)
+    pipe = build_pipeline(args, backend, device=device, devices=devices)
 
     json_dir = (None if args.no_json
                 else args.json_dir or os.path.join(args.output_dir, "json"))

@@ -25,7 +25,8 @@ command's order, and fail here rather than in the first request:
   ``ops/preprocess.pack_crops_flat`` quantizes to);
 - the detector at each window size, when ``--model`` is given.
 
-``--engine xla`` and ``--pack_output`` are not ported and raise.
+``--pack_output`` runs the full-resolution forwards with the packed
+readback, as ``gseg-e2e --pack_output`` does.
 """
 import argparse
 import os
@@ -40,8 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--folds", type=int, nargs="*", default=[1, 2, 3, 4, 5])
     parser.add_argument("--seg_batch_size", type=int, default=32)
     parser.add_argument("--engine", default="auto",
-                        choices=["auto", "xla", "fused", "packed"],
-                        help="'xla' is not ported")
+                        choices=["auto", "xla", "fused", "packed"])
     parser.add_argument("--buckets", type=int, nargs="*", default=[512],
                         help="crop bucket sizes (multiples of 256) to warm")
     parser.add_argument("--transfer", default="both",
@@ -53,7 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="flat buffer lengths to warm, in eighths of "
                              "the padded batch bytes")
     parser.add_argument("--pack_output", action="store_true",
-                        help="not ported")
+                        help="warm the packed-readback variant of the "
+                             "full-res forward (matches gseg-e2e/"
+                             "gseg-segment --pack_output)")
     parser.add_argument("--model", type=str, default=None,
                         help="detector model dir (optional)")
     parser.add_argument("--model_name", default=None,
@@ -75,10 +77,6 @@ def main(argv=None, device="cuda"):
 
     from .. import resolve_device
 
-    unported = (["--engine xla"] if args.engine == "xla" else []) + \
-        (["--pack_output"] if args.pack_output else [])
-    if unported:
-        raise SystemExit("not ported: " + ", ".join(unported))
     if resolve_device(device).type == "cuda":
         from ..ops import _build
 
@@ -110,7 +108,8 @@ def main(argv=None, device="cuda"):
                               f"espnet_fold{k}.pth") for k in args.folds]
         ens = EnsembleSegmenter(
             EnsembleConfig(checkpoints=ckpts, folds=tuple(args.folds),
-                           batch_size=args.seg_batch_size),
+                           batch_size=args.seg_batch_size,
+                           pack_output=args.pack_output),
             engine=args.engine, device=device)
         bs = args.seg_batch_size
         for bucket in args.buckets:
@@ -138,7 +137,7 @@ def main(argv=None, device="cuda"):
                           "(full-res + /8 gather)...", flush=True)
                     ens.read_maps(ens.submit_batch_flat(
                         flat, offs, ones, ones, bucket, bucket))
-                    ens.read_maps(ens.submit_batch_gather_flat(
+                    ens.read_gathered(ens.submit_batch_gather_flat(
                         flat, offs, ones, ones, ys, xs, bucket, bucket))
                     did.append(f"ensemble@{bucket}:flat{k}/8")
 

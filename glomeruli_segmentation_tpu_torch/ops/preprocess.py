@@ -1,8 +1,11 @@
 """Crop preprocessing for ESPNet inference: the reference-exact cv2 path
 (:func:`preprocess_host`), the cv2-exact bilinear resize of a padded crop
 batch and the fused resize and normalise built on it
-(:func:`preprocess_batch_device`), the ragged flat crop transfer, and the
-nearest resize of class maps back to crop size.
+(:func:`preprocess_batch_device`), the ragged flat crop transfer, the
+base-``classes`` packing of class maps for their readback
+(:func:`pack_classmap`, exactly undone on the host by
+:func:`unpack_classmap`), and the nearest resize of class maps back to crop
+size.
 
 Counterpart of ``glomeruli_segmentation_tpu/ops/preprocess.py``.  The JAX
 package vmaps its per-crop functions; here the batch dimension is written
@@ -173,6 +176,72 @@ def copy_pixels(dst: np.ndarray, src: np.ndarray) -> None:
         return
     for ch in range(src.shape[-1]):
         dst[..., ch] = src[..., ch]
+
+
+def classmap_pack_width(classes: int) -> int:
+    """Pixels per byte for base-``classes`` class-map packing: the largest
+    ``k`` with ``classes ** k <= 256`` (3 at 5 classes); 1 (no packing)
+    above 16 classes."""
+    if classes < 2:  # degenerate map; 1**k/0**k never exceed 256
+        return 1
+    k = 1
+    while classes ** (k + 1) <= 256:
+        k += 1
+    return k
+
+
+def pack_classmap(maps: torch.Tensor, classes: int) -> torch.Tensor:
+    """(B, H, W) uint8 class maps -> (B, H, ceil(W/k)) base-``classes``
+    packed bytes, on their device (the exact inverse is
+    :func:`unpack_classmap`).
+
+    The digit layout is the JAX package's, chunked: with chunk =
+    ceil(W/k), byte ``j`` holds pixels ``j, j + chunk, j + 2 chunk, ...``
+    as digits 0..k-1.  The zero pad pixels of a width that k does not
+    divide land in the tail of the last digit and are dropped on unpack."""
+    k = classmap_pack_width(classes)
+    if k == 1:
+        return maps
+    w = maps.shape[-1]
+    chunk = -(-w // k)
+    m = torch.nn.functional.pad(maps, (0, chunk * k - w)).to(torch.uint8)
+    packed = m[..., :chunk].clone()
+    for i in range(1, k):
+        # uint8 arithmetic wraps as the JAX package's does; the sum of the
+        # digits never passes classes ** k - 1 <= 255
+        packed += m[..., i * chunk: (i + 1) * chunk] * (classes ** i)
+    return packed
+
+
+def unpack_classmap(packed: np.ndarray, classes: int, w: int) -> np.ndarray:
+    """Host inverse of :func:`pack_classmap`: digit ``i`` of each byte is
+    pixels ``[i * chunk, (i + 1) * chunk)``, recovered with one 256-entry
+    lookup table per digit."""
+    k = classmap_pack_width(classes)
+    if k == 1:
+        return packed[..., :w]
+    chunk = packed.shape[-1]
+    vals = np.arange(256)
+    out = np.empty(packed.shape[:-1] + (chunk * k,), np.uint8)
+    for i in range(k):
+        lut = (vals // classes ** i % classes).astype(np.uint8)
+        out[..., i * chunk: (i + 1) * chunk] = lut[packed]
+    return out[..., :w]
+
+
+def maybe_pack(maps: torch.Tensor, classes: int,
+               enabled: bool) -> torch.Tensor:
+    """:func:`pack_classmap` when ``enabled`` (device side), the one
+    flag-and-classes contract of ``EnsembleSegmenter`` and
+    ``EspnetSegmenter``."""
+    return pack_classmap(maps, classes) if enabled else maps
+
+
+def read_packed(maps: np.ndarray, classes: int, w: int,
+                enabled: bool) -> np.ndarray:
+    """Host class maps read back from a :func:`maybe_pack` result under the
+    same flag -> (..., H, ``w``) uint8."""
+    return unpack_classmap(maps, classes, w) if enabled else maps
 
 
 def postprocess_nearest_host(class_map: np.ndarray, out_h: int,

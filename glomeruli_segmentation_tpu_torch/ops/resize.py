@@ -16,6 +16,9 @@ Counterpart of ``glomeruli_segmentation_tpu/ops/resize.py``:
   of the JAX module's cv2-INTER_LINEAR tables and their host (numpy) twin:
   the SegFormer slide path samples its logits with those tables, and its
   per-crop path upsamples them on the host.
+- :func:`resize_nearest`, cv2 INTER_NEAREST of one (H, W, ...) image on
+  its device.  Nothing in either package calls it; it is here so the
+  module's surface is whole.
 """
 from __future__ import annotations
 
@@ -119,3 +122,17 @@ def resize_bilinear(img: torch.Tensor, out_h: int,
     """cv2.resize(..., INTER_LINEAR) of a (B, H, W, C) batch -> float32
     (B, out_h, out_w, C), on its device."""
     return _resize(img, out_h, out_w, half_pixel=True)
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.resize(..., interpolation=INTER_NEAREST) of an (H, W, ...)
+    image: ``src = min(floor(dst * h / out_h), h - 1)`` per axis, the
+    tables made on the host in float64 as numpy makes them, then two
+    ``index_select`` calls on the image's device."""
+    h, w = img.shape[:2]
+    ys = np.minimum(np.floor(np.arange(out_h) * (h / out_h)).astype(np.int64),
+                    h - 1)
+    xs = np.minimum(np.floor(np.arange(out_w) * (w / out_w)).astype(np.int64),
+                    w - 1)
+    out = img.index_select(0, torch.from_numpy(ys).to(img.device))
+    return out.index_select(1, torch.from_numpy(xs).to(img.device))

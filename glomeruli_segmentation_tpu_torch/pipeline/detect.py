@@ -17,8 +17,11 @@ timing-log row; with ``resume`` it skips the slides the timing log already
 holds and appends.  A PNG is scanned at its own pixels with the slide
 metadata of its target-list line (:meth:`GlomusDetector.
 scan_region_from_image`).  :meth:`GlomusDetector.scan_slide` scans one open
-slide; the end-to-end pipeline calls it directly.  The data-parallel
-window mesh is not ported.
+slide; the end-to-end pipeline calls it directly.  With ``data_parallel``
+a backend splits each window batch over a data mesh
+(:mod:`..parallel.mesh`): contiguous shards, one replica of the detector
+per data-axis device, detections concatenated in window order, so each
+NMS stage launches K3 once per shard.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from ..models.od_api_frcnn import (ODAPIConfig, ODAPIFasterRCNN,
 from ..models.od_api_frcnn import build_anchors as build_od_api_anchors
 from ..ops.resize import (resize_bilinear, resize_bilinear_tf1,
                           resize_bilinear_tf1_np)
+from ..parallel.mesh import Replicas, make_data_mesh, upload, visible_devices
 from ..utils.glomus_handler import GlomusHandler
 from ..utils.target_list import read_target_list
 from ..wsi import (PROPERTY_NAME_MPP_X, PROPERTY_NAME_MPP_Y,
@@ -97,6 +101,25 @@ def unpack_detections(packed: np.ndarray):
             packed[:, -1])
 
 
+def _make_backend_mesh(data_parallel: int, batch_size: int, device,
+                       devices=None):
+    """Window batches split over the mesh's data axis (``--data_parallel``:
+    0 = one device, -1 = all of ``devices``, N = exactly N), the
+    wall-clock-dominant stage; ``devices`` defaults to the visible devices
+    of ``device``'s type."""
+    return make_data_mesh(data_parallel, batch_size,
+                          devices=(visible_devices(device) if devices is None
+                                   else devices))
+
+
+def _backend_replicas(mesh, device: torch.device, build) -> Replicas:
+    """The detector on ``device`` alone, or one replica per data-axis
+    device of ``mesh``."""
+    if mesh is None:
+        return Replicas([device], [build(device)], [None])
+    return Replicas.build(mesh.axis_devices("data"), build)
+
+
 class _PackedBackend(DetectorBackend):
     """A device backend whose ``detect_batch_submit`` returns a
     :func:`..readback` handle on the packed result of
@@ -115,6 +138,8 @@ class _PackedBackend(DetectorBackend):
         return readback(out)
 
     def read_detections(self, handle):
+        """A handle (a list of shards' handles under a mesh) as numpy
+        ``(boxes, scores, classes, num)`` in window order."""
         return unpack_detections(read_host(handle))
 
     def detect_batch(self, images: np.ndarray):
@@ -126,42 +151,57 @@ class TorchDetectorBackend(_PackedBackend):
     ``device="cpu"``).
 
     ``state`` is the port's detector state (``convert/detector_import``).
-    Weights are held once in ``compute_dtype``; each window geometry gets a
-    model view and its anchors, made at first use.  ``kernel_nms=False``
-    runs the plain NMS instead of the K3 kernel (for comparisons).
+    Weights are held once in ``compute_dtype`` on each device; each window
+    geometry gets a model view and its anchors, made at first use.
+    ``kernel_nms=False`` runs the plain NMS instead of the K3 kernel (for
+    comparisons).  ``data_parallel`` and ``devices``: the window mesh
+    (:func:`_make_backend_mesh`).
     """
 
     def __init__(self, state: Mapping[str, torch.Tensor],
                  config: Optional[FasterRCNNConfig] = None,
                  batch_size: int = 8, compute_dtype: str = "bfloat16",
-                 device="cuda", kernel_nms: bool = True):
+                 device="cuda", kernel_nms: bool = True,
+                 data_parallel: int = 0, devices=None):
         self.base_config = config or FasterRCNNConfig()
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
-        self.device = resolve_device(device)
-        self.model = FasterRCNN(self.base_config, kernel_nms=kernel_nms) \
-            .load_state(state).to(self.device, _DTYPES[compute_dtype]).eval()
+        device = resolve_device(device)
+        self.mesh = _make_backend_mesh(data_parallel, batch_size, device,
+                                       devices)
+        self._replicas = _backend_replicas(
+            self.mesh, device, lambda dev: FasterRCNN(
+                self.base_config, kernel_nms=kernel_nms).load_state(state)
+            .to(dev, _DTYPES[compute_dtype]).eval())
+        self.device = self._replicas.devices[0]
+        self.model = self._replicas.replicas[0]
         self._geometry = {}
 
-    def _model_for(self, h: int, w: int):
-        key = (h, w)
+    def _model_for(self, h: int, w: int, model=None, device=None):
+        """-> (model view, anchors) of an h x w window on ``device`` (the
+        first replica's by default)."""
+        model = self.model if model is None else model
+        device = self.device if device is None else device
+        key = (h, w, device)
         if key not in self._geometry:
-            model = self.model.with_image_size(h, w)
-            anchors = build_anchors(model.config).to(self.device)
-            self._geometry[key] = (model, anchors)
+            view = model.with_image_size(h, w)
+            anchors = build_anchors(view.config).to(device)
+            self._geometry[key] = (view, anchors)
         return self._geometry[key]
 
     @torch.inference_mode()
     def detect_batch_submit(self, images: np.ndarray):
-        """Upload and launch; returns the packed result's readback handle.
-        On a card the windows go through pinned memory without waiting for
-        the device, so the host can stage the next batch meanwhile."""
-        model, anchors = self._model_for(images.shape[1], images.shape[2])
-        x = torch.from_numpy(np.ascontiguousarray(images))
-        if self.device.type == "cuda":
-            x = x.pin_memory()
-        x = x.to(self.device, non_blocking=True)
-        return self._launch(model, x, anchors)
+        """Upload and launch each shard; returns the packed results'
+        readback handles.  On a card the windows go through pinned memory
+        without waiting for the device, so the host can stage the next
+        batch meanwhile."""
+        h, w = images.shape[1:3]
+
+        def one(model, dev, part):
+            view, anchors = self._model_for(h, w, model, dev)
+            return self._launch(view, upload(part, dev), anchors)
+
+        return self._replicas.submit(one, images)
 
 
 class ODAPIDetectorBackend(_PackedBackend):
@@ -185,9 +225,10 @@ class ODAPIDetectorBackend(_PackedBackend):
       (:func:`..ops.resize.resize_bilinear_tf1` or ``resize_bilinear``).
 
     Normalized output boxes are aspect-preserving, so they map back to the
-    window unchanged.  ``kernel_nms`` and the async pair are as in
-    :class:`TorchDetectorBackend`; ``config_overrides`` are
-    :class:`..models.od_api_frcnn.ODAPIConfig` fields.
+    window unchanged.  ``kernel_nms``, the async pair and the window mesh
+    (``data_parallel``, ``devices``) are as in :class:`TorchDetectorBackend`;
+    ``config_overrides`` are :class:`..models.od_api_frcnn.ODAPIConfig`
+    fields.
     """
 
     def __init__(self, pb_path: Optional[str] = None, batch_size: int = 8,
@@ -195,6 +236,7 @@ class ODAPIDetectorBackend(_PackedBackend):
                  num_classes: Optional[int] = None,
                  device_resize: bool = False, compat_tf1_resize: bool = True,
                  device="cuda", kernel_nms: bool = True,
+                 data_parallel: int = 0, devices=None,
                  **config_overrides):
         if params is not None:
             if num_classes is None:
@@ -209,24 +251,32 @@ class ODAPIDetectorBackend(_PackedBackend):
         self.compute_dtype = compute_dtype
         self.device_resize = device_resize
         self.compat_tf1_resize = compat_tf1_resize
-        self.device = resolve_device(device)
+        device = resolve_device(device)
         self.base_config = ODAPIConfig(num_classes=self.num_classes,
                                        **config_overrides)
-        self.model = ODAPIFasterRCNN(
-            self.params, self.base_config, compute_dtype, kernel_nms) \
-            .to(self.device, memory_format=torch.channels_last).eval()
+        self.mesh = _make_backend_mesh(data_parallel, batch_size, device,
+                                       devices)
+        self._replicas = _backend_replicas(
+            self.mesh, device, lambda dev: ODAPIFasterRCNN(
+                self.params, self.base_config, compute_dtype, kernel_nms)
+            .to(dev, memory_format=torch.channels_last).eval())
+        self.device = self._replicas.devices[0]
+        self.model = self._replicas.replicas[0]
         self._geometry = {}
 
-    def _model_for(self, h: int, w: int):
-        """-> (resized shape, model view, anchors) of an h x w window."""
-        key = (h, w)
+    def _model_for(self, h: int, w: int, model=None, device=None):
+        """-> (resized shape, model view, anchors) of an h x w window on
+        ``device`` (the first replica's by default)."""
+        model = self.model if model is None else model
+        device = self.device if device is None else device
+        key = (h, w, device)
         if key not in self._geometry:
             cfg = self.base_config
             rh, rw = keep_aspect_resize_shape(h, w, cfg.min_dimension,
                                               cfg.max_dimension)
-            model = self.model.with_image_size(rh, rw)
-            anchors = build_od_api_anchors(model.config).to(self.device)
-            self._geometry[key] = ((rh, rw), model, anchors)
+            view = model.with_image_size(rh, rw)
+            anchors = build_od_api_anchors(view.config).to(device)
+            self._geometry[key] = ((rh, rw), view, anchors)
         return self._geometry[key]
 
     def resize_host(self, images: np.ndarray, rh: int, rw: int
@@ -244,24 +294,25 @@ class ODAPIDetectorBackend(_PackedBackend):
 
     @torch.inference_mode()
     def detect_batch_submit(self, images: np.ndarray):
-        """Resize (on the host by default), upload through pinned memory
-        without waiting for the device, launch; returns the packed result's
-        readback handle."""
+        """Resize (on the host by default), upload each shard through pinned
+        memory without waiting for the device, launch; returns the packed
+        results' readback handles."""
         h, w = images.shape[1:3]
-        (rh, rw), model, anchors = self._model_for(h, w)
+        (rh, rw), _, _ = self._model_for(h, w)
         resize = (rh, rw) != (h, w)
         if resize and not self.device_resize:
-            x = self.resize_host(images, rh, rw)
-        else:
-            x = torch.from_numpy(np.ascontiguousarray(images))
-        if self.device.type == "cuda":
-            x = x.pin_memory()
-        x = x.to(self.device, non_blocking=True)
-        if resize and self.device_resize:
-            op = (resize_bilinear_tf1 if self.compat_tf1_resize
-                  else resize_bilinear)
-            x = op(x, rh, rw)
-        return self._launch(model, x, anchors)
+            images = self.resize_host(images, rh, rw)
+
+        def one(model, dev, part):
+            _, view, anchors = self._model_for(h, w, model, dev)
+            x = upload(part, dev)
+            if resize and self.device_resize:
+                op = (resize_bilinear_tf1 if self.compat_tf1_resize
+                      else resize_bilinear)
+                x = op(x, rh, rw)
+            return self._launch(view, x, anchors)
+
+        return self._replicas.submit(one, images)
 
 
 def threshold_boxes(boxes: np.ndarray, scores: np.ndarray, window_x: int,

@@ -74,21 +74,18 @@ class FusedEndToEnd:
         (``crop_artifact="png"`` then emits mode-'L' grayscale label PNGs,
         the GTCS stitcher's input).
 
-        ``transfer="auto"`` is ``"flat"``, what the JAX package picks on one
-        device.  ``host_resize=True`` raises: the port's
-        :class:`.fused.FusedSlideSegmenter` has no host resize yet."""
+        ``host_resize`` and ``transfer`` go to the ensemble's
+        :class:`.fused.FusedSlideSegmenter` (``"auto"``: flat on one
+        device, padded with ``host_resize`` or under a mesh)."""
         # reference operating points: example/README.md:34-37,48-49
         self.backend = backend
-        if host_resize:
-            raise ValueError("host_resize is not ported: FusedSlideSegmenter "
-                             "resizes crops on the device only")
         if segmenter is not None:
             if ensemble is not None:
                 raise ValueError("pass ensemble OR segmenter, not both")
             self.segmenter = segmenter
         else:
             self.segmenter = FusedSlideSegmenter(
-                ensemble, transfer="flat" if transfer == "auto" else transfer)
+                ensemble, host_resize=host_resize, transfer=transfer)
         self.palette = ESPNET_PALETTE if palette is None else palette
         if crop_artifact not in ("labelme", "png"):
             raise ValueError(f"unknown crop_artifact {crop_artifact!r}")

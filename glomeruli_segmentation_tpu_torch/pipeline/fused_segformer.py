@@ -19,13 +19,14 @@ no intermediate files.  Numerics follow the staged chain:
   (B, th, tw) uint8 maps come back.  With ``on_crop`` the logits come back
   and the host numpy twin (:func:`..ops.resize.resize_bilinear_np`) makes
   each crop's full map.
+
+With a ``mesh`` (:mod:`..parallel.mesh`) each crop batch splits over its
+data axis, one replica of the model per data-axis device.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-import queue
-import threading
 from typing import List, Optional
 
 import numpy as np
@@ -35,6 +36,8 @@ from .. import read_host, readback, resolve_device, tf32
 from ..data.segformer_dataset import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.preprocess import postprocess_nearest_host
 from ..ops.resize import _linear_weights, resize_bilinear_np
+from ..parallel.mesh import Replicas, upload
+from .fused import staged
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,6 +82,21 @@ def load_segformer_checkpoint(path: str):
     return state_dict, int(blob.get("num_labels", 5))
 
 
+class _Replica:
+    """The MiT model on one device, with the ImageNet mean and std there."""
+
+    def __init__(self, state_dict, config: SegformerSlideConfig, device):
+        from ..models.segformer import Segformer, config_from_state_dict
+
+        self.model = Segformer(
+            config_from_state_dict(state_dict, num_labels=config.num_labels),
+            dtype=_DTYPES[config.compute_dtype])
+        self.model.load_state_dict(state_dict, strict=True)
+        self.model.to(device).eval()
+        self.mean = torch.from_numpy(IMAGENET_MEAN).to(device)
+        self.std = torch.from_numpy(IMAGENET_STD).to(device)
+
+
 class SegformerSlideSegmenter:
     """Whole slide: detections -> /8 prediction canvas, with the GTCS
     model.  Same ``segment_slide(slide, detections, progress, on_crop)``
@@ -87,46 +105,53 @@ class SegformerSlideSegmenter:
 
     ``compute_dtype="float32"`` runs with TF32 off (the JAX package's f32
     parity path); ``"bfloat16"`` runs the products in bf16 and keeps the
-    norms and the softmax in float32."""
+    norms and the softmax in float32.  With a ``mesh`` the batch size must
+    divide by its data axis."""
 
     def __init__(self, state_dict, config: Optional[SegformerSlideConfig]
-                 = None, device="cuda"):
-        from ..models.segformer import Segformer, config_from_state_dict
-
+                 = None, device="cuda", mesh=None):
         self.config = config or SegformerSlideConfig()
         cfg = self.config
-        self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.compute_dtype]
-        self.model = Segformer(
-            config_from_state_dict(state_dict, num_labels=cfg.num_labels),
-            dtype=self.dtype)
-        self.model.load_state_dict(state_dict, strict=True)
-        self.model.to(self.device).eval()
-        self.mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
-        self.std = torch.from_numpy(IMAGENET_STD).to(self.device)
+        if mesh is None:
+            dev = resolve_device(device)
+            self._replicas = Replicas([dev], [_Replica(state_dict, cfg, dev)],
+                                      [None])
+        else:
+            n_data = mesh.shape["data"]
+            if cfg.batch_size % n_data:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} must be divisible by "
+                    f"the mesh 'data' axis size {n_data} (crop batches "
+                    f"shard over it -- same contract as EnsembleSegmenter)")
+            self._replicas = Replicas.build(
+                mesh.axis_devices("data"),
+                lambda dev: _Replica(state_dict, cfg, dev))
+        self.device = self._replicas.devices[0]
+        self.model = self._replicas.replicas[0].model
         # logits resolution: 1/4 of the input (HF Segformer contract)
         self._hq = cfg.input_size // 4
 
-    def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
-        """Host arrays as device tensors: on a card through pinned memory,
-        without waiting for the device; on the CPU as views."""
-        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        if self.device.type != "cuda":
-            return tensors
-        return [t.pin_memory().to(self.device, non_blocking=True)
-                for t in tensors]
+    def _replica(self, device: torch.device) -> _Replica:
+        """The replica on ``device``, where a batch shard lies."""
+        reps = self._replicas
+        if len(reps) == 1:
+            return reps.replicas[0]
+        return reps.replicas[reps.devices.index(device)]
 
     @torch.no_grad()
     def logits(self, batch_u8: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) uint8 RGB (host cv2-resized) -> (B, S/4, S/4, C)
-        float32 logits; /255 and the ImageNet normalisation on the device,
-        in float32 (:func:`..data.segformer_dataset.feature_extract`)."""
+        float32 logits, by the replica on the batch's device; /255 and the
+        ImageNet normalisation on the device, in float32
+        (:func:`..data.segformer_dataset.feature_extract`)."""
+        rep = self._replica(batch_u8.device)
         x = batch_u8.float() / 255.0
-        x = (x - self.mean) / self.std
+        x = (x - rep.mean) / rep.std
         # TF32 off: float32 products in full float32 (the bf16 path has
         # no float32 products)
         with tf32(False, False):
-            return self.model(x).float()
+            return rep.model(x).float()
 
     @torch.no_grad()
     def gather(self, batch_u8, ylo, yhi, wy, xlo, xhi, wx) -> torch.Tensor:
@@ -146,6 +171,18 @@ class SegformerSlideSegmenter:
         w_x = wx[:, None, :, None]
         out = left * (1.0 - w_x) + right * w_x         # (B, th, tw, C)
         return torch.argmax(out, dim=-1).to(torch.uint8)
+
+    def submit(self, resized: np.ndarray, tables=None):
+        """A staged batch uploaded and launched at each data-axis position:
+        the gathered /8 maps with ``tables``, else the logits; returns the
+        readback handle(s)."""
+        def one(rep, dev, *parts):
+            parts = [upload(a, dev) for a in parts]
+            if tables is None:
+                return readback(self.logits(*parts))
+            return readback(self.gather(*parts))
+
+        return self._replicas.submit(one, resized, *(tables or ()))
 
     def predict_full(self, logits_np: np.ndarray, crop_h: int,
                      crop_w: int) -> np.ndarray:
@@ -207,30 +244,11 @@ class SegformerSlideSegmenter:
                 xlo[i], xhi[i], wx[i] = sample_tables(w, w // 8, tw)
             return chunk, resized, (ylo, yhi, wy, xlo, xhi, wx)
 
-        # double-buffered staging; a producer failure (e.g. a slide-read
-        # error) is handed to the consumer and raised there, so a slide is
-        # never reported complete with a truncated canvas
-        q: "queue.Queue" = queue.Queue(maxsize=2)
-        sentinel = object()
-
-        def producer():
-            try:
-                for first in range(0, len(boxes), bs):
-                    q.put(stage_batch(boxes[first: first + bs]))
-                q.put(sentinel)
-            except BaseException as e:  # re-raised in the consumer loop
-                q.put(e)
-
-        threading.Thread(target=producer, daemon=True).start()
         done = 0
 
         def submit(item):
             chunk, resized, tables = item
-            if ds8:
-                out = self.gather(*self._upload(resized, *tables))
-            else:
-                out = self.logits(*self._upload(resized))
-            return chunk, readback(out)
+            return chunk, self.submit(resized, tables if ds8 else None)
 
         def drain(pending):
             nonlocal done
@@ -260,16 +278,13 @@ class SegformerSlideSegmenter:
         # batch N+1 is launched before batch N is read back, so its upload
         # and launch overlap the device's work on batch N
         pending = None
-        while True:
-            item = q.get()
-            if item is sentinel:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            submitted = submit(item)
-            if pending is not None:
-                drain(pending)
-            pending = submitted
+        with staged(stage_batch, [boxes[first: first + bs] for first
+                                  in range(0, len(boxes), bs)]) as items:
+            for item in items:
+                submitted = submit(item)
+                if pending is not None:
+                    drain(pending)
+                pending = submitted
         if pending is not None:
             drain(pending)
         return canvas

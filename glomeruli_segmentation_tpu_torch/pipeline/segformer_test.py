@@ -10,6 +10,8 @@ scale bar (``test.py:88-146``), and best-checkpoint discovery from the
 training ``log.txt`` (``test.py:149-171``).  The forward runs on
 ``device`` in float32 with TF32 off; each crop's logits are upsampled to
 label size and argmaxed there, and only the class map comes back.
+``--data_parallel`` splits each crop batch over a data mesh
+(:mod:`..parallel.mesh`), one replica of the model per data-axis device.
 """
 from __future__ import annotations
 
@@ -91,18 +93,17 @@ def save_triptych(pred_seg: np.ndarray, gt_seg: np.ndarray,
     concat.save(os.path.join(out_dir, file_name))
 
 
-def run_segformer_test(args, device="cuda") -> None:
-    """``device="cpu"`` runs the model on the CPU (for tests)."""
+def run_segformer_test(args, device="cuda", devices=None) -> None:
+    """``device="cpu"`` runs the model on the CPU (for tests); ``devices``
+    are the mesh's under ``--data_parallel`` (default: the visible devices
+    of ``device``'s type)."""
     from .. import resolve_device, tf32
     from ..models.segformer import (Segformer, config_from_state_dict,
                                     upsample_logits)
+    from ..parallel.mesh import (Replicas, make_data_mesh, on_stream,
+                                 upload, visible_devices)
     from .fused_segformer import load_segformer_checkpoint
 
-    if getattr(args, "data_parallel", 0):
-        raise NotImplementedError(
-            f"data_parallel={args.data_parallel}: the crop-batch mesh is not "
-            "ported (ROADMAP queue 1, 'The rest': parallelism, "
-            "parallel/* onto torch.distributed)")
     dev = resolve_device(device)
     if args.checkpoint == "":
         model_base = os.path.join(
@@ -117,12 +118,14 @@ def run_segformer_test(args, device="cuda") -> None:
         f"{checkpoint}")
     state_dict, _ = load_segformer_checkpoint(
         os.path.join(model_path, "flax_model.pth"))
-    # geometry inferred from the checkpoint so any MiT variant loads
-    # (models/segformer.py::config_from_state_dict)
-    model = Segformer(config_from_state_dict(state_dict,
-                                             num_labels=args.num_labels))
-    model.load_state_dict(state_dict, strict=True)
-    model.to(dev).eval()
+
+    def build(d):
+        # geometry inferred from the checkpoint so any MiT variant loads
+        # (models/segformer.py::config_from_state_dict)
+        model = Segformer(config_from_state_dict(state_dict,
+                                                 num_labels=args.num_labels))
+        model.load_state_dict(state_dict, strict=True)
+        return model.to(d).eval()
 
     data_source = os.path.join(args.data_root, args.target_site,
                                args.data_date)
@@ -143,14 +146,24 @@ def run_segformer_test(args, device="cuda") -> None:
     # metrics and CSV rows are unchanged).  The tail pads by repeating
     # the last crop, so every batch has one shape.
     bs = max(1, int(getattr(args, "batch_size", 1) or 1))
+    # --data_parallel: the crop batch split over an N-device data mesh with
+    # a replica of the model on each (the CLI policy of gseg-segment,
+    # gseg-detect and gseg-e2e, parallel/mesh.py make_data_mesh)
+    mesh = make_data_mesh(getattr(args, "data_parallel", 0), bs,
+                          devices=(visible_devices(dev) if devices is None
+                                   else devices))
+    replicas = (Replicas([dev], [build(dev)], [None]) if mesh is None
+                else Replicas.build(mesh.axis_devices("data"), build))
+    shard = bs // len(replicas)
 
     @torch.no_grad()
-    def forward(batch: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(batch)
-        if dev.type == "cuda":
-            x = x.pin_memory().to(dev, non_blocking=True)
-        with tf32(False, False):
-            return model(x)
+    def forward(batch: np.ndarray) -> list:
+        """The batch's logits, one tensor per data-axis shard."""
+        def one(model, d, part):
+            with tf32(False, False):
+                return model(upload(part, d))
+
+        return replicas.run(one, batch)
 
     @torch.no_grad()
     def predict(logits: torch.Tensor, h: int, w: int) -> np.ndarray:
@@ -170,9 +183,12 @@ def run_segformer_test(args, device="cuda") -> None:
                 image_file = test_ds.images[idx]
                 specimen_id = image_file.split("/")[-2]
                 file_name = image_file.split("/")[-1]
-                logits = batch_logits[pos: pos + 1]
+                k, row = divmod(pos, shard)
+                logits = batch_logits[k][row: row + 1]
                 gt = item["labels"]
-                pred = predict(logits, gt.shape[0], gt.shape[1])
+                # on the shard's own stream, where its logits were made
+                with on_stream(replicas.devices[k], replicas.streams[k]):
+                    pred = predict(logits, gt.shape[0], gt.shape[1])
                 metrics = mean_iou([pred], [gt], args.num_labels,
                                    ignore_index=255)
                 for key, value in metrics.items():

@@ -10,7 +10,10 @@ device path) and batched to a fixed batch size.
 Two engines, as in the JAX package: ``xla`` (its default) runs the plain
 ``nn.Module`` :class:`..models.espnet.ESPNet` (or ``ESPNetEncoder``);
 ``fused`` runs :class:`..models.espnet_fused.FusedESPNet`, whose q level-3
-blocks go through the fused ESP block kernel (K1).
+blocks go through the fused ESP block kernel (K1).  ``data_parallel``
+splits each crop batch over a data mesh of that many devices
+(:mod:`..parallel.mesh`; the ``xla`` engine only, as in the JAX package);
+``pack_output`` packs the class-map readback 3 px/byte.
 """
 from __future__ import annotations
 
@@ -30,11 +33,14 @@ from ..eval.iou_eval import IouEval
 from ..models.espnet import ESPNet, ESPNetEncoder
 from ..models.espnet_fused import FusedESPNet
 from ..ops.preprocess import (
+    maybe_pack,
     postprocess_nearest_host,
     preprocess_batch_device,
     preprocess_host,
+    read_packed,
 )
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import Replicas, make_mesh, upload, visible_devices
 from ..palette import (
     ESPNET_PALETTE,
     PRED_LABEL_IDX,
@@ -67,26 +73,40 @@ class SegmenterConfig:
     # 'fused' runs the level-3 ESP blocks through K1 (inference only);
     # 'xla' is the plain nn.Module path
     engine: str = "xla"
-    # the JAX package's crop-batch mesh: not ported, must stay 0
+    # split crop batches over an N-device mesh (0 = one device, -1 = all
+    # devices); weights replicated on each
     data_parallel: int = 0
-    # base-`classes` packing of the class-map readback: not ported
+    # pack k class-map pixels per byte (base-`classes`) before the readback:
+    # exact, 3x fewer device->host bytes at 5 classes
     pack_output: bool = False
+
+
+class _Replica:
+    """The segmenter's model on one device, with its mean and std there."""
+
+    def __init__(self, sd, config: SegmenterConfig, device: torch.device,
+                 dtype: torch.dtype):
+        self.model = self.fused = None
+        if config.engine == "fused":
+            self.fused = FusedESPNet(sd, fuse_level3=True, dtype=dtype,
+                                     device=device)
+        else:
+            cls = ESPNet if config.decoder else ESPNetEncoder
+            self.model = cls(config.classes, config.p, config.q)
+            self.model.load_state_dict(sd, strict=True)
+            self.model.to(device, dtype).eval()
+        self.mean_std = torch.tensor(
+            np.stack([np.asarray(config.mean, np.float32),
+                      np.asarray(config.std, np.float32)]), device=device)
 
 
 class EspnetSegmenter:
     """Batched ESPNet crop segmentation on ``device`` (the card unless the
-    caller passes ``device="cpu"``)."""
+    caller passes ``device="cpu"``).  With ``config.data_parallel`` the
+    batch splits over a data mesh of ``devices`` (default: the visible
+    devices of ``device``'s type)."""
 
-    def __init__(self, config: SegmenterConfig, device="cuda"):
-        if config.data_parallel:
-            raise NotImplementedError(
-                f"data_parallel={config.data_parallel}: the crop-batch mesh "
-                "is not ported (ROADMAP queue 1, 'The rest': parallelism, "
-                "parallel/* onto torch.distributed)")
-        if config.pack_output:
-            raise NotImplementedError(
-                "pack_output: base-classes packing of the class-map readback "
-                "is not ported (ROADMAP queue 1, 'The rest': pack_output)")
+    def __init__(self, config: SegmenterConfig, device="cuda", devices=None):
         if config.engine not in ("xla", "fused"):
             raise ValueError(f"unknown engine {config.engine!r}")
         if config.precision not in ("default", "high", "highest"):
@@ -113,49 +133,58 @@ class EspnetSegmenter:
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.compute_dtype]
         self.allow_tf32 = config.precision == "default"
-        self.model = self._fused = None
-        if config.engine == "fused":
-            self._fused = FusedESPNet(sd, fuse_level3=True, dtype=self.dtype,
-                                      device=self.device)
+        if config.data_parallel:
+            if config.engine == "fused":
+                # as in the JAX package: the sharded path runs the xla
+                # engine
+                raise ValueError(
+                    "engine='fused' does not support data_parallel")
+            n_dev = config.data_parallel
+            mesh = make_mesh(None if n_dev < 0 else n_dev,
+                             devices=(visible_devices(self.device)
+                                      if devices is None else devices))
+            d = mesh.shape["data"]
+            if config.batch_size % d:
+                raise ValueError(
+                    f"batch_size {config.batch_size} must be a multiple of "
+                    f"the data-axis size {d}")
+            self._replicas = Replicas.build(
+                mesh.axis_devices("data"),
+                lambda dev: _Replica(sd, config, dev, self.dtype))
+            self.device = self._replicas.devices[0]
         else:
-            cls = ESPNet if config.decoder else ESPNetEncoder
-            self.model = cls(config.classes, config.p, config.q)
-            self.model.load_state_dict(sd, strict=True)
-            self.model.to(self.device, self.dtype).eval()
-        self._mean_std = torch.tensor(
-            np.stack([np.asarray(config.mean, np.float32),
-                      np.asarray(config.std, np.float32)]),
-            device=self.device)
+            self._replicas = Replicas(
+                [self.device], [_Replica(sd, config, self.device,
+                                         self.dtype)], [None])
+        first = self._replicas.replicas[0]
+        self.model, self._fused = first.model, first.fused
 
     @torch.no_grad()
-    def _forward(self, batch: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) float32 -> (B, H, W) uint8 argmax class map."""
+    def _forward(self, rep: _Replica, batch: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) float32 -> (B, H, W) uint8 argmax class map
+        (packed to (B, H, ceil(W/k)) with ``config.pack_output``)."""
         cfg = self.config
         with tf32(self.allow_tf32, self.allow_tf32):
             x = batch.to(self.dtype).permute(0, 3, 1, 2)
-            if self._fused is not None:
-                logits = self._fused(x)
+            if rep.fused is not None:
+                logits = rep.fused(x)
             else:
-                logits = self.model(x.contiguous())
+                logits = rep.model(x.contiguous())
             if not cfg.decoder:
                 # torch nn.Upsample(scale_factor=8, mode='bilinear'),
                 # VisualizeResults_iou.py:125-126,258-261
                 nhwc = logits.permute(0, 2, 3, 1)
                 up = resize_bilinear(nhwc, nhwc.shape[1] * 8,
                                      nhwc.shape[2] * 8)
-                return torch.argmax(up, dim=-1).to(torch.uint8)
-            return torch.argmax(logits, dim=1).to(torch.uint8)
+                maps = torch.argmax(up, dim=-1).to(torch.uint8)
+            else:
+                maps = torch.argmax(logits, dim=1).to(torch.uint8)
+            return maybe_pack(maps, cfg.classes, cfg.pack_output)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array as a tensor on the device; on a card the copy is
-        made from pinned memory without waiting, so the next batch goes up
-        while this one runs."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
-    def preprocess(self, images_bgr: List[np.ndarray]) -> torch.Tensor:
+    def _host_batch(self, images_bgr: List[np.ndarray]) -> tuple:
+        """A crop batch as the host arrays the forward uploads: the padded
+        uint8 crops and their sizes (``device_preprocess``), or the
+        reference-exact cv2 preprocessing's float32 batch."""
         cfg = self.config
         if cfg.device_preprocess:
             max_h = max(im.shape[0] for im in images_bgr)
@@ -166,12 +195,26 @@ class EspnetSegmenter:
             for i, im in enumerate(images_bgr):
                 padded[i, : im.shape[0], : im.shape[1]] = im
                 hs[i], ws[i] = im.shape[:2]
-            return preprocess_batch_device(
-                self._upload(padded), self._upload(hs), self._upload(ws),
-                self._mean_std, cfg.in_height, cfg.in_width)
-        arrs = [preprocess_host(im, cfg.mean, cfg.std, cfg.in_width,
-                                cfg.in_height) for im in images_bgr]
-        return self._upload(np.stack(arrs))
+            return padded, hs, ws
+        return (np.stack([preprocess_host(im, cfg.mean, cfg.std,
+                                          cfg.in_width, cfg.in_height)
+                          for im in images_bgr]),)
+
+    def _preprocessed(self, rep: _Replica, device: torch.device,
+                      *arrays) -> torch.Tensor:
+        """:meth:`_host_batch`'s arrays uploaded to ``device`` -> the
+        (B, in_h, in_w, 3) float32 network input there."""
+        cfg = self.config
+        tensors = [upload(a, device) for a in arrays]
+        if cfg.device_preprocess:
+            return preprocess_batch_device(*tensors, rep.mean_std,
+                                           cfg.in_height, cfg.in_width)
+        return tensors[0]
+
+    def preprocess(self, images_bgr: List[np.ndarray]) -> torch.Tensor:
+        """Crops -> the network input on the (first) device."""
+        return self._preprocessed(self._replicas.replicas[0], self.device,
+                                  *self._host_batch(images_bgr))
 
     def segment_images(self, images_bgr: List[np.ndarray]) -> List[np.ndarray]:
         """BGR uint8 crops -> per-crop class maps at original crop size."""
@@ -199,13 +242,20 @@ class EspnetSegmenter:
         chunk = list(images_bgr)
         if n < cfg.batch_size:  # pad to the fixed batch shape
             chunk = chunk + [chunk[-1]] * (cfg.batch_size - n)
-        return readback(self._forward(self.preprocess(chunk))), n
+
+        def one(rep, dev, *arrays):
+            return readback(self._forward(
+                rep, self._preprocessed(rep, dev, *arrays)))
+
+        return self._replicas.submit(one, *self._host_batch(chunk)), n
 
     def read_net_res(self, handle) -> np.ndarray:
         """A :meth:`submit_net_res` handle as (n, in_h, in_w) uint8 class
-        maps (waits for that batch only)."""
+        maps (waits for that batch only; unpacked on the host with
+        ``config.pack_output``)."""
         out, n = handle
-        return read_host(out)[:n]
+        return read_packed(read_host(out), self.config.classes,
+                           self.config.in_width, self.config.pack_output)[:n]
 
     def class_maps_net_res(self, images_bgr: List[np.ndarray]) -> np.ndarray:
         """Class maps at network resolution (in_height, in_width) — used for
@@ -244,8 +294,10 @@ def build_labelme_doc(class_map: np.ndarray, json_image: np.ndarray,
     }
 
 
-def run_segment(args, device="cuda") -> None:
-    """Full VisualizeResults_iou-equivalent artifact generation."""
+def run_segment(args, device="cuda", devices=None) -> None:
+    """Full VisualizeResults_iou-equivalent artifact generation.
+    ``devices``: the mesh's devices under ``--data_parallel`` (default:
+    the visible devices of ``device``'s type)."""
     import cv2
     import glob
 
@@ -291,7 +343,7 @@ def run_segment(args, device="cuda") -> None:
         data_parallel=getattr(args, "data_parallel", 0),
         pack_output=getattr(args, "pack_output", False),
     )
-    segmenter = EspnetSegmenter(cfg, device=device)
+    segmenter = EspnetSegmenter(cfg, device=device, devices=devices)
 
     os.makedirs(args.savedir, exist_ok=True)
     print("num of image:{}".format(len(rgb_image_list)))

@@ -117,7 +117,10 @@ def host_spans(ensemble, slide, boxes, segmenter_cls) -> dict:
     fused.pack_crops_flat = timed("pack_flat", pack)
     ensemble.submit_batch_gather_flat = timed(
         "submit", ensemble.submit_batch_gather_flat)
-    ensemble.read_maps = timed("read_maps", ensemble.read_maps)
+    # the /8 maps' reads: read_gathered where the checkout has it
+    reader = ("read_gathered" if hasattr(ensemble, "read_gathered")
+              else "read_maps")
+    setattr(ensemble, reader, timed("read_maps", getattr(ensemble, reader)))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -128,7 +131,7 @@ def host_spans(ensemble, slide, boxes, segmenter_cls) -> dict:
         fused.pack_crops_flat = pack
         for obj, name in ((slide, "read_region_array"),
                           (ensemble, "submit_batch_gather_flat"),
-                          (ensemble, "read_maps")):
+                          (ensemble, reader)):
             delattr(obj, name)
     return spent
 

@@ -37,6 +37,7 @@ from glomeruli_segmentation_tpu_torch.pipeline import e2e as port_e2e
 from glomeruli_segmentation_tpu_torch.pipeline import fused as port_fused
 
 from test_torch_faster_rcnn import DETECT, DETECT_SEED, _setup
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MPP = 0.25
 FOLDS = (1, 2)
@@ -355,8 +356,21 @@ def test_overlay_pyramid_edge_filled_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(ensembles):
-    with pytest.raises(ValueError, match="host_resize"):
-        port_e2e.FusedEndToEnd(StubBackend(), ensembles[0], host_resize=True)
+    """``host_resize`` is taken as the JAX package takes it (the padded
+    transfer under ``"auto"``; ``"flat"`` raises its error); a bad
+    ``crop_artifact`` or both an ensemble and a segmenter raise."""
+    for transfer, want in (("auto", "padded"), ("padded", "padded")):
+        pipes = [cls(StubBackend(), ens, host_resize=True,
+                     transfer=transfer)
+                 for cls, ens in ((port_e2e.FusedEndToEnd, ensembles[0]),
+                                  (jax_e2e.FusedEndToEnd, ensembles[1]))]
+        assert [(p.segmenter.host_resize, p.segmenter.transfer)
+                for p in pipes] == [(True, want)] * 2
+    for cls, ens in ((port_e2e.FusedEndToEnd, ensembles[0]),
+                     (jax_e2e.FusedEndToEnd, ensembles[1])):
+        with pytest.raises(ValueError, match="transfer='flat' is "
+                                             "single-device"):
+            cls(StubBackend(), ens, host_resize=True, transfer="flat")
     with pytest.raises(ValueError, match="crop_artifact"):
         port_e2e.FusedEndToEnd(StubBackend(), ensembles[0],
                                crop_artifact="tiff")

@@ -33,6 +33,7 @@ from pb_graph_writer import write_graph
 from test_od_api_import import build_od_api_consts
 from test_torch_e2e import CSV, LOG, assert_same_artifacts, write_slide
 from test_torch_faster_rcnn import DETECT, DETECT_SEED, _setup
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATIENT = "H16-1"
 # the OD-API backends' resizer bounds and NMS sizes at these tiny widths
@@ -143,6 +144,44 @@ def test_build_pipeline_defaults(layout):
             == want
 
 
+CPU2 = [torch.device("cpu")] * 2
+
+
+def _by_hand(layout, out, name):
+    """The pipeline each flag asks for, built by hand from the classes, run
+    on the layout's slide into ``out``."""
+    from glomeruli_segmentation_tpu_torch.parallel.mesh import (
+        make_fold_mesh,
+        make_mesh,
+    )
+
+    state, config = load_detector_checkpoint(
+        str(layout / "model" / "detector.ckpt.pth"))
+    backend = port_detect.TorchDetectorBackend(
+        state, config, batch_size=4, device="cpu",
+        data_parallel=2 if name == "--data_parallel" else 0, devices=CPU2)
+    engine, mesh = "auto", None
+    if name == "--data_parallel":
+        mesh = make_mesh(2, devices=CPU2)
+    elif name == "--fold_parallel":
+        engine, mesh = "fold_parallel", make_fold_mesh(2, 0, 2,
+                                                        devices=CPU2)
+    elif name == "--engine xla":
+        engine = "xla"
+    ensemble = port_fused.EnsembleSegmenter(port_fused.EnsembleConfig(
+        checkpoints=[str(layout / "weights" / "espnet_fold1.pth")],
+        folds=(1,), batch_size=2, precision="highest",
+        pack_output=name == "--pack_output"), mesh=mesh, engine=engine,
+        device="cpu")
+    pipe = port_e2e.FusedEndToEnd(backend, ensemble, window_size=64,
+                                  overlap_ratio=0.5, detect_conf=0.3,
+                                  merge_conf=0.4,
+                                  host_resize=name == "--host_resize")
+    pipe.run_slide(str(layout / "data" / "02_PAS" / PATIENT /
+                       f"{PATIENT}.tiff"), str(out), PATIENT,
+                   json_dir=str(out / "json"))
+
+
 @pytest.mark.parametrize("extra,name", [
     (["--data_parallel", "2"], "--data_parallel"),
     (["--fold_parallel", "2"], "--fold_parallel"),
@@ -152,19 +191,73 @@ def test_build_pipeline_defaults(layout):
     (["--engine", "xla"], "--engine xla"),
 ])
 def test_unported_flags_raise(layout, tmp_path, extra, name):
-    with pytest.raises(SystemExit, match=name):
-        cli_e2e.main(_argv(layout, tmp_path / "o", *extra), device="cpu")
-    assert not (tmp_path / "o").exists()
+    """Every flag does what the JAX command does with it.  With
+    ``--segformer_checkpoint`` the ESPNet-only flags conflict and it
+    raises, before writing anything; ``--data_parallel 2`` on one CPU
+    device raises the JAX package's mesh error; otherwise, on 2 logical CPU
+    devices, the command's artifacts equal the pipeline the flag asks for,
+    built by hand (window and crop batches split over a data mesh, the
+    folds over a fold mesh, the host resize, the packed readback, the plain
+    fold engine)."""
+    out = tmp_path / "o"
+    if name == "--segformer_checkpoint":
+        with pytest.raises(SystemExit, match=name):
+            cli_e2e.main(_argv(layout, out, *extra), device="cpu")
+        assert not out.exists()
+        return
+    if name == "--data_parallel":
+        with pytest.raises(ValueError, match="requested a 2-device mesh"):
+            cli_e2e.main(_argv(layout, out, *extra), device="cpu")
+        assert not out.exists()
+    # the mesh flags on 2 logical devices; the others on one (on two,
+    # --mesh auto would build a data mesh of its own)
+    cli_e2e.main(_argv(layout, out, *extra), device="cpu",
+                 devices=CPU2 if name in ("--data_parallel",
+                                          "--fold_parallel") else None)
+    _by_hand(layout, tmp_path / "by_hand", name)
+    assert len((out / CSV).read_text().splitlines()) >= 1
+    assert_same_artifacts(out, tmp_path / "by_hand", [PATIENT])
 
 
-def test_mesh_auto_on_many_cards_raises():
+def test_mesh_auto_on_many_cards_raises(capsys):
+    """``--mesh auto`` resolves as the JAX command's policy does: on 8
+    devices the same flags and the same message as the JAX function (its
+    tests' 8 virtual CPU devices); on 4, a fold axis of 4; one device,
+    ``--mesh off``, an explicit engine or explicit flags leave the flags
+    alone."""
+    from glomeruli_segmentation_tpu.cli import e2e as jax_cli_e2e
+
     parse = cli_e2e.build_parser().parse_args
     base = ["--model", "m", "--target_list", "t", "--data_dir", "d"]
-    with pytest.raises(SystemExit, match="--mesh auto"):
-        cli_e2e.resolve_mesh_policy(parse(base), 4)
-    cli_e2e.resolve_mesh_policy(parse(base), 1)
-    cli_e2e.resolve_mesh_policy(parse(base + ["--mesh", "off"]), 4)
-    cli_e2e.resolve_mesh_policy(parse(base + ["--engine", "packed"]), 4)
+    keys = ("fold_parallel", "data_parallel", "detector_data_parallel")
+    for argv in (base, base + ["--folds", "1"], base + ["--folds", "1", "2"]
+                 + ["--seg_batch_size", "2"]):
+        args, jax_args = parse(argv), jax_cli_e2e.build_parser().parse_args(
+            argv)
+        cli_e2e.resolve_mesh_policy(args, 8)
+        got = capsys.readouterr().out
+        jax_cli_e2e.resolve_mesh_policy(jax_args)
+        assert got == capsys.readouterr().out and got.startswith(
+            "--mesh auto: 8 devices -> ")
+        assert [getattr(args, k, 0) for k in keys] == \
+            [getattr(jax_args, k, 0) for k in keys]
+        assert cli_e2e.detector_data_parallel(args) == \
+            jax_cli_e2e.detector_data_parallel(jax_args)
+    args = parse(base)
+    cli_e2e.resolve_mesh_policy(args, 4)
+    assert (args.fold_parallel, args.data_parallel,
+            args.detector_data_parallel) == (4, 0, 4)
+    assert capsys.readouterr().out == (
+        "--mesh auto: 4 devices -> fold x data = 4 x 1 (override with "
+        "--fold_parallel/--data_parallel, disable with --mesh off)\n")
+    for argv, n in ((base, 1), (base + ["--mesh", "off"], 4),
+                    (base + ["--engine", "packed"], 4),
+                    (base + ["--fold_parallel", "2"], 4)):
+        args = parse(argv)
+        cli_e2e.resolve_mesh_policy(args, n)
+        assert (args.fold_parallel, cli_e2e.detector_data_parallel(args)) \
+            == (2 if "--fold_parallel" in argv else 0, 0)
+    assert capsys.readouterr().out == ""
 
 
 @pytest.fixture(scope="module")
@@ -245,6 +338,26 @@ def test_load_backend_choices_match_jax(model_files, tmp_path, files,
 
 
 def test_load_backend_data_parallel_raises(model_files):
-    with pytest.raises(SystemExit, match="data_parallel=2"):
+    """``data_parallel=2``: on one CPU device the JAX package's mesh error;
+    on 2 logical devices a backend whose window batches split 2 + 2, with
+    the one-device backend's detections."""
+    with pytest.raises(ValueError, match="requested a 2-device mesh"):
         cli_detect.load_backend(str(model_files), data_parallel=2,
                                 device="cpu")
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 255, (4, 128, 128, 3)).astype(np.uint8)
+    for name in ("detector.ckpt.pth", "od_api_detector.ckpt.pth"):
+        one = cli_detect.load_backend(str(model_files), name, 4,
+                                      od_api_overrides=dict(OD_API),
+                                      device="cpu")
+        two = cli_detect.load_backend(str(model_files), name, 4,
+                                      od_api_overrides=dict(OD_API),
+                                      data_parallel=2, device="cpu",
+                                      devices=CPU2)
+        assert one.mesh is None and two.mesh.shape == {"data": 2,
+                                                       "model": 1}
+        handle = two.detect_batch_submit(images)
+        assert isinstance(handle, list) and len(handle) == 2
+        for a, b in zip(two.read_detections(handle),
+                        one.detect_batch(images)):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)

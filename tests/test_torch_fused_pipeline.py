@@ -20,6 +20,7 @@ from glomeruli_segmentation_tpu_torch.convert.espnet_import import (
 )
 from glomeruli_segmentation_tpu_torch.models.espnet_fused import FusedESPNet
 from glomeruli_segmentation_tpu_torch.pipeline import fused as port_fused
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(folds=(1, 2), p=1, q=2, in_height=64, in_width=128,
@@ -47,7 +48,7 @@ def checkpoints(tmp_path_factory):
 def port(checkpoints):
     return port_fused.EnsembleSegmenter(
         port_fused.EnsembleConfig(checkpoints=checkpoints, **SMALL),
-        device="cpu")
+        engine="fused", device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -200,11 +201,16 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("change,match", [
     (dict(folds=(1,)), "checkpoints for folds"),
-    (dict(pack_output=True), "pack_output"),
+    (dict(pack_output=True), None),
     (dict(precision="high"), "precision"),
-    ("xla", "not ported"),
+    ("xla", None),
 ])
-def test_ensemble_rejects_unsupported_config(checkpoints, change, match):
+def test_ensemble_rejects_unsupported_config(checkpoints, port, change,
+                                             match):
+    """The configs the port refuses raise; ``pack_output`` and the ``xla``
+    engine run as in the JAX package: the packed readback unpacks to the
+    fused engine's maps, and the xla engine's maps equal the JAX xla
+    engine's."""
     cfg = port_fused.EnsembleConfig(checkpoints=checkpoints, **SMALL)
     engine = "fused"
     if isinstance(change, str):
@@ -212,8 +218,21 @@ def test_ensemble_rejects_unsupported_config(checkpoints, change, match):
     else:
         cfg = port_fused.EnsembleConfig(
             checkpoints=checkpoints, **{**SMALL, **change})
-    with pytest.raises(ValueError, match=match):
-        port_fused.EnsembleSegmenter(cfg, engine=engine, device="cpu")
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            port_fused.EnsembleSegmenter(cfg, engine=engine, device="cpu")
+        return
+    padded, hs, ws = _batch()
+    got = port_fused.EnsembleSegmenter(
+        cfg, engine=engine, device="cpu").segment_batch_padded(
+        padded, hs, ws)
+    if engine == "xla":
+        want = jax_fused.EnsembleSegmenter(
+            jax_fused.EnsembleConfig(checkpoints=checkpoints, **SMALL),
+            engine="xla").segment_batch_padded(padded, hs, ws)
+    else:
+        want = port.segment_batch_padded(padded, hs, ws)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_bf16_path_tracks_jax(checkpoints, port):
@@ -229,7 +248,7 @@ def test_bf16_path_tracks_jax(checkpoints, port):
         engine="fused").segment_batch_padded(padded, hs, ws)
     bf16 = port_fused.EnsembleSegmenter(
         port_fused.EnsembleConfig(checkpoints=checkpoints, **cfg),
-        device="cpu")
+        engine="fused", device="cpu")
     assert bf16.nets[0].enc["level3"][0]["wd"].dtype == torch.bfloat16
     got = bf16.segment_batch_padded(padded, hs, ws)
     f32 = port.segment_batch_padded(padded, hs, ws)

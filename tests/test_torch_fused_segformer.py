@@ -34,6 +34,7 @@ from test_fused_pipeline import _FailingSlide
 from test_torch_e2e import (CSV, LOG, StubBackend, assert_same_artifacts,
                             crop_files, write_slide)
 from test_torch_segformer import assert_wide_margins, jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the network input of these tests (the CLI default is 512): the logits
 # are 64x64, and crops of 133 to 1400 px upsample from them
@@ -231,9 +232,19 @@ def test_espnet_only_flags_conflict_like_jax(layout, tmp_path, extra,
 
 
 def test_data_parallel_stays_refused(layout, tmp_path, stub_detectors):
-    with pytest.raises(SystemExit, match="not ported: --data_parallel"):
+    """``--data_parallel 2`` with ``--segformer_checkpoint`` is what the
+    JAX command does: the SegFormer crop batches split over a data mesh
+    (one device: the JAX package's error), and every artifact equal to the
+    JAX command's with the same flag."""
+    with pytest.raises(ValueError, match="requested a 2-device mesh"):
         port_cli_e2e.main(_argv(layout, tmp_path / "o", "--data_parallel",
                                 "2"), device="cpu")
+    port_out, jax_out = tmp_path / "port", tmp_path / "jax"
+    port_cli_e2e.main(_argv(layout, port_out, "--data_parallel", "2"),
+                      device="cpu", devices=[torch.device("cpu")] * 2)
+    jax_cli_e2e.main(_argv(layout, jax_out, "--data_parallel", "2"))
+    assert len(crop_files(port_out, PATIENT)) > 0
+    assert_same_artifacts(port_out, jax_out, [PATIENT])
 
 
 def test_serve_leaves_the_artifacts_of_e2e(layout, tmp_path,

@@ -29,6 +29,7 @@ from glomeruli_segmentation_tpu_torch.pipeline import (
 from test_segformer_pipeline import _gtcs_tree
 from test_torch_segformer import assert_wide_margins, jax_logits, \
     jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 INPUT = 64
 DATE = "20260101"
@@ -173,11 +174,25 @@ def test_cli_matches_jax(tree, tmp_path):
 
 
 def test_data_parallel_raises(tree, tmp_path):
+    """``--data_parallel 2`` as in the JAX command: on one device it raises
+    the JAX package's error before writing any report (the report
+    directory is made first, in both packages); over 2 logical CPU devices
+    (the batch of 4 split 2 + 2) every report file equals the JAX
+    command's with the same flag."""
+    import torch
+
     root, _ = tree
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        port_cli.main(_argv(root, tmp_path, "--data_parallel", "2"),
-                      device="cpu")
-    assert not (tmp_path / "01_Todai").exists()
+    argv = ("--data_parallel", "2", "--batch_size", "4")
+    with pytest.raises(ValueError, match="requested a 2-device mesh"):
+        port_cli.main(_argv(root, tmp_path / "one", *argv), device="cpu")
+    assert not _files(tmp_path / "one")
+    port_cli.main(_argv(root, tmp_path / "port", *argv), device="cpu",
+                  devices=[torch.device("cpu")] * 2)
+    jax_cli.main(_argv(root, tmp_path / "jax", *argv))
+    got, want = _files(tmp_path / "port"), _files(tmp_path / "jax")
+    assert got.keys() == want.keys() and len(got) > 10
+    differ = [k for k in got if got[k] != want[k]]
+    assert not differ, differ
 
 
 def test_runs_on_the_card_by_default(tree, tmp_path, monkeypatch):

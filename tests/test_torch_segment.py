@@ -24,6 +24,7 @@ from glomeruli_segmentation_tpu_torch.ops import preprocess
 from glomeruli_segmentation_tpu_torch.pipeline import segment
 from glomeruli_segmentation_tpu_torch.utils.labelme_io import lblsave
 from glomeruli_segmentation_tpu_torch.wsi.synthetic import pas_like_image
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MEAN = [204.60071, 170.19359, 199.57469]
 STD = [20.61257, 42.92207, 28.401505]
@@ -191,19 +192,40 @@ def test_compute_dtype_and_precision(weights, monkeypatch):
 
 
 def test_not_ported_and_bad_configs_raise(weights, tmp_path):
+    """The configs the JAX package refuses raise; ``data_parallel`` and
+    ``pack_output`` run as in the JAX package: the batch split over a data
+    mesh of logical CPU devices, the packed readback unpacked on the host,
+    both giving the one-device maps."""
     base = dict(weights=weights, **SMALL)
-    for extra, err in ((dict(data_parallel=2), NotImplementedError),
-                       (dict(data_parallel=-1), NotImplementedError),
-                       (dict(pack_output=True), NotImplementedError),
-                       (dict(engine="packed"), ValueError),
-                       (dict(precision="low"), ValueError),
-                       (dict(q=8), ValueError)):
-        with pytest.raises(err):
+    crops = make_crops(n=4)[0]
+    want = segment.EspnetSegmenter(segment.SegmenterConfig(**base),
+                                   device="cpu").class_maps_net_res(crops)
+    cpu = torch.device("cpu")
+    for extra, devices in ((dict(data_parallel=2), [cpu] * 2),
+                           (dict(data_parallel=-1), [cpu] * 4),
+                           (dict(pack_output=True), None)):
+        seg = segment.EspnetSegmenter(
+            segment.SegmenterConfig(**{**base, **extra}), device="cpu",
+            devices=devices)
+        np.testing.assert_array_equal(seg.class_maps_net_res(crops), want)
+    for extra, err, match in (
+            (dict(data_parallel=2), ValueError, "requested a 2-device mesh"),
+            (dict(data_parallel=2, engine="fused"), ValueError,
+             "does not support data_parallel"),
+            (dict(data_parallel=3), ValueError, "multiple of the data-axis"),
+            (dict(engine="packed"), ValueError, "engine"),
+            (dict(precision="low"), ValueError, "precision"),
+            (dict(q=8), ValueError, "architecture")):
+        with pytest.raises(err, match=match):
             segment.EspnetSegmenter(
-                segment.SegmenterConfig(**{**base, **extra}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        segment.EspnetSegmenter(segment.SegmenterConfig(
-            **base, pack_output=True), device="cpu")
+                segment.SegmenterConfig(**{**base, **extra}), device="cpu",
+                devices=[cpu] * 3 if extra.get("data_parallel") == 3
+                else None)
+    packed = segment.EspnetSegmenter(segment.SegmenterConfig(
+        **base, pack_output=True), device="cpu")
+    out, n = packed.submit_net_res(crops[:2])
+    assert packed.read_net_res((out, n)).shape == (2, 128, 256)
+    assert segment.read_host(out).shape == (8, 128, 86)
     with pytest.raises(SystemExit):
         segment.EspnetSegmenter(segment.SegmenterConfig(
             **dict(base, weights=str(tmp_path / "missing.pth"))),

@@ -17,6 +17,7 @@ from glomeruli_segmentation_tpu_torch.convert.espnet_import import (
 from glomeruli_segmentation_tpu_torch.pipeline import fused as port_fused
 
 from test_torch_e2e_cli import _write_detector_ckpt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ENSEMBLE_CALLS = ("segment_batch_padded", "segment_batch_gather",
                   "submit_batch_flat", "submit_batch_gather_flat")
@@ -130,17 +131,29 @@ def test_main_makes_the_jax_calls(layout, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--engine", "xla"], "not ported: --engine xla"),
-    (["--pack_output"], "not ported: --pack_output"),
+    (["--engine", "xla"], "nothing to warm"),
+    (["--pack_output"], "nothing to warm"),
     ([], "nothing to warm"),
     (["--window_sizes", "128", "--buckets"], "nothing to warm"),
 ])
 def test_unported_and_nothing_to_warm_exit(argv, message):
+    """Without weights or a model there is nothing to warm, in both
+    packages, whatever the engine and readback flags."""
     with pytest.raises(SystemExit, match=message):
         warmup.main(argv, device="cpu")
-    if message == "nothing to warm":
-        with pytest.raises(SystemExit, match=message):
-            jax_warmup.main(argv)
+    with pytest.raises(SystemExit, match=message):
+        jax_warmup.main(argv)
+
+
+def test_xla_engine_and_pack_output_warm(layout, capsys):
+    """``--engine xla --pack_output`` warms the plain fold engine with the
+    packed full-resolution readback, as the JAX command does."""
+    warmup.main(["--segmentation_weights_dir", str(layout / "weights"),
+                 "--folds", "1", "--seg_batch_size", "2", "--buckets", "256",
+                 "--flat_eighths", "5", "--engine", "xla", "--pack_output"],
+                device="cpu")
+    assert capsys.readouterr().out.splitlines()[-1] == (
+        "warmed: ensemble@256, ensemble@256:flat5/8")
 
 
 def test_main_runs_on_cuda_by_default(monkeypatch):
