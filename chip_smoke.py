@@ -193,7 +193,22 @@
     must stop with the JAX package's "requested a 2-device mesh" message;
     s/slide and ms per item, the counts set to 0 before and read after
     each run;
-21. prints one JSON line of kernel results (K3 once per detector, each with
+21. trains on two gloo ranks sharing this card (``parallel/distributed.py``
+    ranks, ``cuda:0`` twice) against one device on the same batches: one
+    ESPNet encoder step (p=2, q=8, 1024x512, batch 10, 5 a rank) from equal
+    state, loss and summed gradients (cosine and norms); then, inside the
+    ranks, ``gseg-train`` (batch 8, encoder, one epoch over a 24-crop
+    tree), ``gseg-segformer-train`` (mit-b0, 512x512, batch 2, one epoch)
+    and ``gseg-train-detector`` (native ResNet-50-C4 f32, 512x512, batch
+    4, 10 steps) through their ``main``: per-step losses within 10x the
+    floor one device shows against itself with each batch's rows
+    reversed, K3 launched steps x ranks times (counted in the ranks), the
+    first step's proposals found in one device's, rank 1 writing no file;
+    one shard's RPN problem through K3 against ``nms_plain``; s/step for
+    one device and two ranks and the all-reduce's share of a step; then
+    ``gseg-segformer-train --coordinator --num_processes 1`` launching its
+    own rank on ``nccl``;
+22. prints one JSON line of kernel results (K3 once per detector, each with
     its launches in the e2e run and in the server run, the OD-API one also
     in the SegFormer e2e run and in ``gseg-selftest``, and the selftest
     window's two cases among its ``cases``; K1 and K2 with their
@@ -202,14 +217,16 @@
     training phase; K3 also with its launches in the detector training
     phase and its training-shape case among its ``cases``; K1, K2 and the
     OD-API K3 with their launches in the inference-surface runs, K3 also
-    under ``--data_parallel 2``) and, last, one JSON status line.
+    under ``--data_parallel 2``; the ResNet K3 with its launches in the
+    distributed-training ranks and one shard's case) and, last, one JSON
+    status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
 ``python3 chip_smoke.py --only detector_training`` builds and runs phase
 19 alone (on a tree it writes), ``--only inference_surface`` phase 20
-(on the e2e slide, folds and detector it writes), without the result
-lines.
+(on the e2e slide, folds and detector it writes), ``--only
+distributed_training`` phase 21, without the result lines.
 """
 from __future__ import annotations
 
@@ -466,6 +483,24 @@ DET_ILL_CONDITIONED = 1000 * 1e-8
 # reduction.  After 30 steps, gradients of this BN-heavy network agree only
 # to ~1e-3 of the largest between any two summation orders
 DET_NOISE_FACTOR = 10
+# the distributed-training phase: ranks on this one card, the trainers at
+# the recipe's widths, cut in depth.  The ESPNet tree (train, val, height,
+# width): 24 training crops give scale1 and scale2 three steps of 8, scale4
+# and scale3 two of 12, main 10, 10 and 4; the encoder's explicit step at
+# the main scale's batch of 10 (5 a rank), timed after two; the detector's
+# steps; the ranks' devices (gloo: they share the card); the gradients'
+# bar (cosine above, norms' rtol: the JAX package's own for sharded against
+# unsharded); the share of a first step's proposal rows equal on one device
+# and on the ranks; the loss bar's factor on the noise floor one device
+# shows against itself with each batch's rows reversed (the same function,
+# another summation order)
+DIST_TRAIN_DATA = (24, 4, 512, 1024)
+DIST_GRAD_BATCH, DIST_TIMED_STEPS = 10, 5
+DIST_DET_STEPS = 10
+DIST_DEVICES = ("cuda:0", "cuda:0")
+DIST_GRAD = (0.99999, 1e-4)
+DIST_PROPOSALS = 0.98
+DIST_NOISE_FACTOR = 10
 
 
 def check(ok: bool, message: str) -> None:
@@ -1605,8 +1640,8 @@ def artifacts(out: Path) -> dict:
 def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
     """The end-to-end pipeline through the CLI's ``build_pipeline`` at its
     defaults, on a written pyramidal TIFF read by the port's ``open_slide``:
-    two slides pipelined and serial (byte-identical artifacts; the
-    serial run traced), the detect and segment split, ``--no_json`` and
+    two slides pipelined and the first serial (byte-identical artifacts;
+    the serial run traced), the detect and segment split, ``--no_json`` and
     ``--device_resize`` on one slide, host spans, peak memory and the K1
     and K3 launches of the pipelined run.  Returns that run's launches and
     times."""
@@ -1738,9 +1773,10 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
         # these shapes: no warm-up run
         main_run = run("pipelined", True)
         # the serial run is the traced one: the device works under 2% of
-        # the time, so the profiler's per-launch cost is lost in the noise
+        # the time, so the profiler's per-launch cost is lost in the noise;
+        # one slide, against the pipelined run's first
         serial = {}
-        prof = trace(lambda: serial.update(run("serial", False)))
+        prof = trace(lambda: serial.update(run("serial", False, n_jobs=1)))
         # one slide each without the JSONs: the device-side /8 gather,
         # then the same with the windows resized on the card
         no_json = run("no_json", False, json_dir=False, n_jobs=1)
@@ -1796,20 +1832,26 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
 
     # ---- pipelined against serial: byte-identical artifacts ----
     a, b = artifacts(main_run["out"]), artifacts(serial["out"])
-    check(a.keys() == b.keys(), "e2e: pipelined and serial files differ")
-    differ = [k for k in a if a[k] != b[k]]
-    check(not differ, f"e2e: pipelined and serial differ in {differ[:5]}")
     for pid, v in merged.items():
         n_json = len([k for k in a if k.startswith(f"json/{pid}/")])
         check(n_json == len(v), f"e2e {pid}: {n_json} JSONs for "
                                 f"{len(v)} boxes")
     first = [ln for ln in a["OPT_PAS_GlomusMergedList_.csv"].splitlines(True)
              if ln.split(b",")[1] == E2E_JOBS[0].encode()]
+    # the pipelined run's files of the first slide
+    a = {k: v for k, v in a.items() if not any(
+        pid in k for pid in E2E_JOBS[1:])}
+    a["OPT_PAS_GlomusMergedList_.csv"] = b"".join(first)
+    a["log"] = a["log"][:1]
+    check(a.keys() == b.keys(), "e2e: pipelined and serial files differ")
+    differ = [k for k in a if a[k] != b[k]]
+    check(not differ, f"e2e: pipelined and serial differ in {differ[:5]}")
     check(artifacts(no_json["out"])["OPT_PAS_GlomusMergedList_.csv"]
           == b"".join(first), "e2e --no_json: other merged boxes")
     same_px = float((no_json["canvases"][0][1]
                      == main_run["canvases"][0][1]).mean())
-    print(f"e2e pipelined and serial: {len(a) - 1} artifact files "
+    print(f"e2e pipelined and serial, the first slide: {len(a) - 1} "
+          f"artifact files "
           f"(merged CSV, labelme JSONs, overlay "
           f"JPGs) byte-identical, timing-log rows equal apart from the "
           f"times; --no_json: merged CSV identical, canvas pixels equal to "
@@ -1819,8 +1861,7 @@ def e2e_phase(ckpt_dir: Path, name_power: str) -> dict:
                      ("serial --no_json", no_json),
                      ("serial --no_json --device_resize", device_resize)):
         print_run(label, r)
-    print_trace(f"e2e serial run ({len(jobs)} slides, JSON path)", prof,
-                name_power)
+    print_trace("e2e serial run (1 slide, JSON path)", prof, name_power)
     return {"launches": main_run["launches"], "wall": main_run["wall"],
             "serial_wall": serial["wall"], "slide": path,
             "params": backend.params, "consts": consts,
@@ -3000,7 +3041,7 @@ def selftest_phase(slide: Path, consts: dict, params: dict,
 
 
 # ---------------- the training slice ----------------
-def write_train_tree(root: Path) -> Path:
+def write_train_tree(root: Path, data: tuple = TRAIN_DATA) -> Path:
     """``root/{train,val}/{rgb,label}/<patient>/<crop>.PNG``: PAS-like BGR
     crops (``pas_like_image``) whose glomeruli are labelled 1 with a tuft
     of 2 and, in turn, a crescent (3) or sclerosis (4) cap, as palette
@@ -3011,7 +3052,7 @@ def write_train_tree(root: Path) -> Path:
         create_dataset_txt as dataset_txt_cli,
     )
 
-    n_train, n_val, h, w = TRAIN_DATA
+    n_train, n_val, h, w = data
     yy, xx = np.mgrid[:h, :w]
     for split, count in (("train", n_train), ("val", n_val)):
         for i in range(count):
@@ -3127,10 +3168,12 @@ def espnet_train_run(root: Path, name: str, extra: list,
             "peaks": peaks}
 
 
-def host_batch(root: Path, count: int, width: int, height: int):
+def host_batch(root: Path, count: int, width: int, height: int,
+               scale_in: int = 1):
     """The first ``count`` training crops through the validation pipeline
     at ``width`` x ``height`` (the trainer's normalisation, no random
-    transform): an NHWC float32 batch and its int32 labels."""
+    transform): an NHWC float32 batch and its int32 labels, downsampled by
+    ``scale_in``."""
     import pickle
 
     from glomeruli_segmentation_tpu_torch.data import transforms as T
@@ -3143,7 +3186,8 @@ def host_batch(root: Path, count: int, width: int, height: int):
     ds = SegmentationDataset(data["trainIm"][:count],
                              data["trainAnnot"][:count], T.Compose([
                                  T.Normalize(data["mean"], data["std"]),
-                                 T.Scale(width, height), T.ToTensor(1)]))
+                                 T.Scale(width, height),
+                                 T.ToTensor(scale_in)]))
     items = [ds.get(i, np.random.default_rng(i)) for i in range(count)]
     return (np.stack([a for a, _ in items]), np.stack([b for _, b in items]),
             np.asarray(data["classWeights"], np.float32))
@@ -3324,24 +3368,12 @@ def write_f32_safetensors(tensors: dict, path: Path) -> None:
     path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
 
 
-def segformer_train_run(name_power: str, device: str = "cuda") -> dict:
-    """``gseg-segformer-train`` through ``cli/segformer_train.main`` on the
-    card from a backbone-only mit-b0 ``model.safetensors`` of seeded
-    weights, over a synthetic GTCS tree; each micro-batch step timed
-    (synchronised) by wrapping the trainer's ``build_steps``.  Checks the
-    adopted tensors, ``log.txt``, the checkpoints kept and the newest
-    ``flax_model.pth`` through ``gseg-segformer-test``'s loader."""
+def segformer_train_tree(root: Path):
+    """A synthetic GTCS tree (``SEGFORMER_TRAIN``) under ``root`` and a
+    backbone-only mit-b0 ``model.safetensors`` of seeded weights: (the
+    checkpoint's path, its tensor count)."""
     from PIL import Image
 
-    from glomeruli_segmentation_tpu_torch.cli import (
-        segformer_train as segformer_train_cli,
-    )
-    from glomeruli_segmentation_tpu_torch.pipeline.fused_segformer import (
-        load_segformer_checkpoint,
-    )
-    from glomeruli_segmentation_tpu_torch.train import segformer_train
-
-    root = WORK / "train" / "gtcs"
     specimens, crops, size = SEGFORMER_TRAIN
     data = root / GTCS_SITE / GTCS_DATE
     yy, xx = np.mgrid[:size, :size]
@@ -3368,7 +3400,26 @@ def segformer_train_run(name_power: str, device: str = "cuda") -> dict:
         SEGFORMER_CONFIGS["mit-b0"], SEGFORMER_SEED).items()
         if not k.startswith("decode_head.")}
     write_f32_safetensors(backbone, ckpt / "model.safetensors")
+    return ckpt / "model.safetensors", len(backbone)
 
+
+def segformer_train_run(name_power: str, device: str = "cuda") -> dict:
+    """``gseg-segformer-train`` through ``cli/segformer_train.main`` on the
+    card from a backbone-only mit-b0 ``model.safetensors`` of seeded
+    weights, over a synthetic GTCS tree; each micro-batch step timed
+    (synchronised) by wrapping the trainer's ``build_steps``.  Checks the
+    adopted tensors, ``log.txt``, the checkpoints kept and the newest
+    ``flax_model.pth`` through ``gseg-segformer-test``'s loader."""
+    from glomeruli_segmentation_tpu_torch.cli import (
+        segformer_train as segformer_train_cli,
+    )
+    from glomeruli_segmentation_tpu_torch.pipeline.fused_segformer import (
+        load_segformer_checkpoint,
+    )
+    from glomeruli_segmentation_tpu_torch.train import segformer_train
+
+    root = WORK / "train" / "gtcs"
+    ckpt_file, n_backbone = segformer_train_tree(root)
     times = []
     build_steps = segformer_train.build_steps
 
@@ -3395,15 +3446,15 @@ def segformer_train_run(name_power: str, device: str = "cuda") -> dict:
                 str(root / "models"), "--output_dir", "b0", "--fold", "1",
                 "--batch_size", "2", "--accumulation_steps", "2",
                 "--save_interval", "1", "--max_epoch", "2",
-                "--pretrained_checkpoint", str(ckpt / "model.safetensors"),
+                "--pretrained_checkpoint", str(ckpt_file),
                 "--device", device]))
     finally:
         segformer_train.build_steps = build_steps
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     adopted = re.findall(r"\((\d+) tensors adopted\)", out.getvalue())
-    check(adopted == [str(len(backbone))],
-          f"adopted {adopted}, want {len(backbone)}")
+    check(adopted == [str(n_backbone)],
+          f"adopted {adopted}, want {n_backbone}")
     log = [json.loads(line) for line in open(out_dir / "log.txt")]
     check([sorted(r) for r in log] == [["epoch", "loss"],
                                        ["epoch", "eval_mean_iou"]] * 2
@@ -4259,12 +4310,516 @@ def inference_surface_phase(e2e: dict, ckpt_dir: Path, model_dir: Path,
             "k3": mesh_k3, "by_shape": by_shape, "seconds": seconds}
 
 
+# ---------------- data-parallel training over ranks ----------------
+class TrainRecorder:
+    """Wraps the three trainers' steps, in this process, to record what a
+    step did: per ESPNet step the all-reduce seconds (the trainer's own
+    ``timings`` and ``losses`` hold the rest); per SegFormer micro-batch
+    and detector step the losses, the seconds (synchronised) and the
+    all-reduce seconds; the detector's first proposals.  With ``reverse``
+    each batch's rows go in reversed (the same function, another summation
+    order: a run's noise floor).  ``all_reduce_s`` counts the time inside
+    ``torch.distributed.all_reduce``, synchronised on both sides."""
+
+    def __init__(self, reverse: bool = False):
+        from glomeruli_segmentation_tpu_torch.train import (
+            detector_driver,
+            espnet_train,
+            segformer_train,
+        )
+
+        self.reverse, self.all_reduce_s = reverse, 0.0
+        self.espnet_ar, self.segformer, self.detector = [], [], []
+        self.first_proposals = None
+        self._restore = []
+        rec = self
+
+        esp_step = espnet_train.EspnetTrainer.train_step
+
+        def espnet_step(self_, model, optimizer, x, y, valid=None):
+            if rec.reverse:
+                x, y = x.flip(0), y.flip(0)
+            a0 = rec.all_reduce_s
+            out = esp_step(self_, model, optimizer, x, y, valid)
+            rec.espnet_ar.append(rec.all_reduce_s - a0)
+            return out
+
+        build_steps = segformer_train.build_steps
+
+        def timed_build_steps(*args, **kwargs):
+            train_step, eval_step = build_steps(*args, **kwargs)
+
+            def step(x, y):
+                if rec.reverse:
+                    x, y = x.flip(0), y.flip(0)
+                a0, t0 = rec.all_reduce_s, time.perf_counter()
+                loss = float(train_step(x, y))
+                rec.segformer.append((loss, time.perf_counter() - t0,
+                                      rec.all_reduce_s - a0))
+                return torch.tensor(loss)
+            return step, eval_step
+
+        det_step = detector_driver.train_step
+
+        def detector_step(model, optimizer, forward, anchors, batch,
+                          bf16=False):
+            if rec.reverse:
+                batch = tuple(t.flip(0) for t in batch)
+            a0, t0 = rec.all_reduce_s, time.perf_counter()
+            losses, proposals = det_step(model, optimizer, forward, anchors,
+                                         batch, bf16)
+            values = torch.stack(list(losses.values())).double().cpu()
+            rec.detector.append((values.tolist(),
+                                 time.perf_counter() - t0,
+                                 rec.all_reduce_s - a0))
+            if rec.first_proposals is None:
+                rec.first_proposals = (proposals.flip(0) if rec.reverse
+                                       else proposals).cpu().numpy()
+            return losses, proposals
+
+        all_reduce = torch.distributed.all_reduce
+
+        def timed_all_reduce(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = all_reduce(t, *a, **k)
+            torch.cuda.synchronize()
+            rec.all_reduce_s += time.perf_counter() - t0
+            return out
+
+        for owner, name, new in (
+                (espnet_train.EspnetTrainer, "train_step", espnet_step),
+                (segformer_train, "build_steps", timed_build_steps),
+                (detector_driver, "train_step", detector_step),
+                (torch.distributed, "all_reduce", timed_all_reduce)):
+            self._restore.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, new)
+
+    def close(self) -> None:
+        for owner, name, old in reversed(self._restore):
+            setattr(owner, name, old)
+
+
+def dist_espnet_steps(sd: dict, batch, rec: TrainRecorder,
+                      device: str = "cuda") -> dict:
+    """ESPNet encoder steps through ``EspnetTrainer.train_step`` from
+    ``sd`` on ``batch`` (in a rank, its rows of it, padded as the trainer
+    pads): the first step's loss and gradients (summed over the ranks),
+    then ``DIST_TIMED_STEPS`` timed steps after two, each ended by reading
+    its loss and histogram back, and their all-reduce seconds."""
+    from glomeruli_segmentation_tpu_torch.train.batch_norm import (
+        use_flax_batch_norm,
+    )
+
+    x, y, weights = batch
+    model = create_espnet(TRAIN_CLASSES, TRAIN_P, TRAIN_Q, decoder=False)
+    model.load_state_dict(sd, strict=True)
+    trainer = espnet_trainer(device, weights)
+    model = use_flax_batch_norm(model).to(trainer.device)
+    optimizer = trainer.build_optimizer(model)
+    xd, yd, valid = trainer._device_batch(x, y)
+    times, ars, first = [], [], None
+    for i in range(3 + DIST_TIMED_STEPS):
+        a0, t0 = rec.all_reduce_s, time.perf_counter()
+        loss, _ = trainer._read(*trainer.train_step(model, optimizer, xd, yd,
+                                                    valid))
+        times.append(time.perf_counter() - t0)
+        ars.append(rec.all_reduce_s - a0)
+        if first is None:
+            first = (loss, torch.cat([p.grad.reshape(-1) for p in
+                                      model.parameters()]).double().cpu())
+    return {"loss": first[0], "grads": first[1].numpy(),
+            "rows": int(xd.shape[0]),
+            "s_per_step": float(np.median(times[3:])),
+            "all_reduce_s": float(np.median(ars[3:]))}
+
+
+def dist_train_argv(trees: dict, name: str, data_parallel: int = 0,
+                    device: str = "cuda") -> dict:
+    """Each trainer's command line for run ``name``."""
+    work = WORK / "dist" / name
+    dp = ["--data_parallel", str(data_parallel)] if data_parallel else []
+    return {
+        "espnet": [
+            "--data_dir", str(trees["espnet"]), "--cached_data_file",
+            str(trees["espnet"] / "data.p"), "--savedir",
+            str(work / "espnet"), "--classes", str(TRAIN_CLASSES), "--p",
+            str(TRAIN_P), "--q", str(TRAIN_Q), "--batch_size",
+            str(TRAIN_BATCH), "--max_epochs", "1", "--num_workers", "4",
+            "--scaleIn", "8", "--device", device, *dp],
+        "segformer": [
+            "--site", GTCS_SITE, "--data_root", str(trees["gtcs"]),
+            "--data_date", GTCS_DATE, "--model_root", str(work / "gtcs"),
+            "--output_dir", "b0", "--fold", "1", "--batch_size", "2",
+            "--save_interval", "1", "--max_epoch", "1",
+            "--pretrained_checkpoint", str(trees["mit_b0"]), "--device",
+            device, *dp],
+        "detector": [
+            "--data_dir", str(trees["detector"] / "data"), "--target_list",
+            str(trees["detector"] / "targets.txt"), "--output_dir",
+            str(work / "detector"), "--steps", str(DIST_DET_STEPS),
+            "--batch_size", str(DET_TRAIN_BATCH), "--image_size",
+            str(DET_TRAIN_SIZE), "--lr", str(DET_TRAIN_LR), "--backbone",
+            DET_TRAIN_BACKBONE, "--device", device, *dp],
+    }
+
+
+def dist_train_run(argv: dict, sd: dict = None, reverse: bool = False,
+                   device: str = "cuda") -> dict:
+    """``gseg-train`` through its ``main``, then (given ``sd``) the
+    explicit ESPNet steps from ``sd`` on the first ``DIST_GRAD_BATCH``
+    crops of its tree, then ``gseg-segformer-train`` and
+    ``gseg-train-detector`` through their ``main``, recorded
+    (:class:`TrainRecorder`), the K1, K2 and K3 counts set to 0 before and
+    read after; in this process, or inside a rank."""
+    from glomeruli_segmentation_tpu_torch.cli import (
+        segformer_train as segformer_train_cli,
+    )
+    from glomeruli_segmentation_tpu_torch.cli import train as train_cli
+    from glomeruli_segmentation_tpu_torch.cli import (
+        train_detector as train_detector_cli,
+    )
+
+    rec = TrainRecorder(reverse)
+    esp_block_fused.launches = esp_block_padded.launches = nms.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = train_cli.main(argv["espnet"])
+        t1 = time.perf_counter()
+        esp_ar = list(rec.espnet_ar)
+        root = Path(argv["espnet"][argv["espnet"].index("--data_dir") + 1])
+        grad = None if sd is None else dist_espnet_steps(sd, host_batch(
+            root, DIST_GRAD_BATCH, *TRAIN_MAIN_WH, scale_in=8), rec, device)
+        t1g = time.perf_counter()
+        segformer_train_cli.main(argv["segformer"])
+        t2 = time.perf_counter()
+        k3_before = nms.launches
+        train_detector_cli.main(argv["detector"])
+        k3 = nms.launches - k3_before
+    finally:
+        rec.close()
+    return {"grad": grad, "espnet": {
+                "timings": trainer.timings,
+                "losses": [v for _, v in trainer.losses],
+                "all_reduce_s": esp_ar, "seconds": t1 - t0},
+            "segformer": {"steps": rec.segformer, "seconds": t2 - t1g},
+            "detector": {"steps": rec.detector, "k3": k3,
+                         "proposals": rec.first_proposals,
+                         "seconds": time.perf_counter() - t2},
+            "launches": (esp_block_fused.launches,
+                         esp_block_padded.launches, nms.launches)}
+
+
+def distributed_rank(argv: dict, sd: dict, device: str = "cuda") -> None:
+    """What each rank of the distributed-training phase runs, in a process
+    that ``parallel/distributed.launch`` started on the data axis:
+    :func:`dist_train_run`, each command's ``main`` training on the axis
+    it joined, and every file the rank opens for writing (rank 0 writes
+    the artifacts; the others must write none); reported."""
+    import builtins
+
+    from glomeruli_segmentation_tpu_torch.parallel import distributed
+
+    writes = []
+    open_, save = builtins.open, torch.save
+
+    def recording_open(file, mode="r", *a, **k):
+        if (any(c in mode for c in "wax+") and not isinstance(file, int)
+                and str(file) != os.devnull):
+            writes.append(str(file))
+        return open_(file, mode, *a, **k)
+
+    def recording_save(obj, f, *a, **k):
+        writes.append(str(f))
+        return save(obj, f, *a, **k)
+
+    builtins.open, torch.save = recording_open, recording_save
+    try:
+        out = dist_train_run(argv, sd, device=device)
+    finally:
+        builtins.open, torch.save = open_, save
+    distributed.report(run=out, writes=writes, rank=distributed.rank(),
+                       world=distributed.world(),
+                       backend=distributed.init_distributed().backend)
+
+
+def rel_diffs(got: list, want: list) -> list:
+    """Per step, the largest difference of its losses (a loss, or the
+    detector's four and their total) over the largest of ``want``'s."""
+    return [float(np.max(np.abs(np.subtract(g, w))) / np.max(np.abs(w)))
+            for g, w in zip(got, want)]
+
+
+def loss_parity(label: str, ranks: list, one: list, floor_run: list,
+                name_power: str) -> dict:
+    """The ranks' per-step losses against one device's: the first step
+    (from equal state) within ``TRAIN_PARITY["loss"]`` relative, or within
+    ``DIST_NOISE_FACTOR`` times one device's own first-step floor (its run
+    with each batch's rows reversed: the same function in another
+    summation order) where that is above; every step within the same
+    factor of the run's largest floor.  After a few steps of a detector
+    at random weights both differences grow to the losses' own size (NMS
+    over near-tied scores, Adam's update of tiny gradients): the first
+    step is the sharp check there."""
+    check(len(ranks) == len(one) == len(floor_run) and one,
+          f"{label}: {len(ranks)}, {len(one)}, {len(floor_run)} steps")
+    d, floor = rel_diffs(ranks, one), rel_diffs(floor_run, one)
+    first_bar = max(TRAIN_PARITY["loss"], DIST_NOISE_FACTOR * floor[0])
+    bar = max(TRAIN_PARITY["loss"], DIST_NOISE_FACTOR * max(floor))
+    print(f"distributed {label}: {len(one)} steps, losses against one "
+          f"device: first step (equal state) rel {d[0]:.3e} (bar "
+          f"{first_bar:.3e}), largest {max(d):.3e} at step "
+          f"{int(np.argmax(d))} (bar {bar:.3e}); one device against itself"
+          f" with rows reversed: first {floor[0]:.3e}, largest "
+          f"{max(floor):.3e} | {name_power}", flush=True)
+    check(d[0] <= first_bar and max(d) <= bar,
+          f"{label}: two ranks and one device disagree")
+    return {"first": d[0], "largest": max(d), "floor": max(floor),
+            "first_bar": first_bar, "bar": bar}
+
+
+def proposal_match(got: np.ndarray, want: np.ndarray,
+                   atol: float = 1e-2) -> float:
+    """The share of ``want``'s proposal rows (N, P, 4) that ``got`` holds
+    in the same window within ``atol`` pixels, as sets: near-tied scores
+    may order the NMS differently."""
+    found = [np.abs(g[None, :, :] - w[:, None, :]).max(-1).min(1) <= atol
+             for g, w in zip(got, want)]
+    return float(np.concatenate(found).mean())
+
+
+def distributed_training_phase(name_power: str, device: str = "cuda"
+                               ) -> dict:
+    """Data-parallel training on two gloo ranks sharing this card, against
+    one device on the same batches: the explicit ESPNet encoder step's
+    loss and gradients, then ``gseg-train`` (ESPNet p=2, q=8, batch 8,
+    encoder, one epoch of the cut tree), ``gseg-segformer-train`` (mit-b0,
+    512x512, batch 2, one epoch) and ``gseg-train-detector`` (native
+    ResNet-50-C4 f32, 512x512, batch 4, ``DIST_DET_STEPS`` steps) through
+    their ``main`` inside the ranks; each run's losses against one
+    device's within the floor one device shows against itself; K3 launched
+    steps x ranks times, counted inside the ranks; the detector's first
+    proposals; one shard's RPN problem through K3 against ``nms_plain``;
+    rank 1 writes nothing; then ``gseg-segformer-train --coordinator
+    127.0.0.1:PORT --num_processes 1`` launching its own rank with
+    ``nccl``.  Prints s/step for one device and two ranks and the
+    all-reduce's share of a step."""
+    from glomeruli_segmentation_tpu_torch.cli import (
+        segformer_train as segformer_train_cli,
+    )
+    from glomeruli_segmentation_tpu_torch.convert.detector_import import (
+        init_detector_state,
+    )
+    from glomeruli_segmentation_tpu_torch.parallel import distributed
+    from glomeruli_segmentation_tpu_torch.train.detector_driver import (
+        DetectorTrainConfig,
+        SlideWindowSampler,
+        upload_batch,
+    )
+
+    shutil.rmtree(WORK / "dist", ignore_errors=True)
+    t0 = time.perf_counter()
+    trees = {"espnet": write_train_tree(WORK / "dist" / "espnet_data",
+                                        DIST_TRAIN_DATA),
+             "gtcs": WORK / "dist" / "gtcs_data",
+             "detector": WORK / "staged_segment"}
+    trees["mit_b0"], _ = segformer_train_tree(trees["gtcs"])
+    if not (trees["detector"] / "targets.txt").is_file():
+        staged_segment_tree(trees["detector"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sd = create_espnet(TRAIN_CLASSES, TRAIN_P, TRAIN_Q,
+                           decoder=False).state_dict()
+    setup_s = time.perf_counter() - t0
+
+    # one device: the runs, then the same with every batch's rows reversed
+    t0 = time.perf_counter()
+    one = dist_train_run(dist_train_argv(trees, "one", device=device), sd,
+                         device=device)
+    one_s = time.perf_counter() - t0
+    floor_run = dist_train_run(dist_train_argv(trees, "floor",
+                                               device=device),
+                               reverse=True, device=device)
+    floor_s = time.perf_counter() - t0 - one_s
+    torch.cuda.empty_cache()
+
+    # two ranks on this card
+    plan = distributed.plan_ranks(2, devices=list(
+        DIST_DEVICES if device == "cuda" else ("cpu", "cpu")))
+    check(plan.backend == "gloo" and plan.world == 2, f"plan {plan}")
+    t0 = time.perf_counter()
+    distributed.launch(plan, distributed_rank,
+                       dist_train_argv(trees, "ranks", 2, device), sd,
+                       device)
+    ranks_s = time.perf_counter() - t0
+    reports = distributed.last_reports
+    two = reports[0]["run"]
+    check([r["rank"] for r in reports] == [0, 1]
+          and all(r["world"] == 2 and r["backend"] == "gloo"
+                  for r in reports), "the ranks' own view of the axis")
+    check(reports[1]["writes"] == [],
+          f"rank 1 wrote {reports[1]['writes'][:5]}")
+    check(any(w.endswith("model_1.pth") for w in reports[0]["writes"])
+          and (WORK / "dist" / "ranks" / f"espnet_enc_{TRAIN_P}_{TRAIN_Q}"
+               / "model_1.pth").is_file(), "rank 0 wrote no model_1.pth")
+    print(f"distributed ranks: rank 0 opened {len(reports[0]['writes'])} "
+          f"files for writing (the artifacts of the three runs), rank 1 "
+          f"{len(reports[1]['writes'])} | {name_power}", flush=True)
+    for r in reports[1:]:
+        check(r["run"]["espnet"]["losses"] == two["espnet"]["losses"]
+              and [s[0] for s in r["run"]["detector"]["steps"]]
+              == [s[0] for s in two["detector"]["steps"]],
+              "the ranks' losses differ")
+
+    # the explicit step: loss and the summed gradients
+    g1, g2 = one["grad"]["grads"], two["grad"]["grads"]
+    cos = float(g1 @ g2 / (np.linalg.norm(g1) * np.linalg.norm(g2)))
+    norm_rel = abs(np.linalg.norm(g2) / np.linalg.norm(g1) - 1)
+    loss_rel = abs(two["grad"]["loss"] - one["grad"]["loss"]) / abs(
+        one["grad"]["loss"])
+    share = two["grad"]["all_reduce_s"] / two["grad"]["s_per_step"]
+    print(f"distributed ESPNet encoder step, main scale {TRAIN_MAIN_WH}, "
+          f"batch {DIST_GRAD_BATCH} ({two['grad']['rows']} a rank), f32 TF32"
+          f" off: loss {two['grad']['loss']:.7f} vs {one['grad']['loss']:.7f}"
+          f" (rel {loss_rel:.3e}), gradients cosine {cos:.8f}, norms rel "
+          f"{norm_rel:.3e}; s/step one device "
+          f"{one['grad']['s_per_step']:.4f}, two ranks "
+          f"{two['grad']['s_per_step']:.4f}, all-reduce "
+          f"{two['grad']['all_reduce_s']:.4f} s a step ({share:.3f}) | "
+          f"{name_power}", flush=True)
+    check(loss_rel <= TRAIN_PARITY["loss"] and cos > DIST_GRAD[0]
+          and norm_rel <= DIST_GRAD[1], "the ranks' ESPNet step disagrees")
+
+    parity = {
+        "espnet": loss_parity("gseg-train ESPNet encoder",
+                              two["espnet"]["losses"],
+                              one["espnet"]["losses"],
+                              floor_run["espnet"]["losses"], name_power),
+        "segformer": loss_parity(
+            "gseg-segformer-train mit-b0", *([s[0] for s in r["segformer"][
+                "steps"]] for r in (two, one, floor_run)), name_power),
+        "detector": loss_parity(
+            "gseg-train-detector ResNet-50-C4 f32", *([s[0] for s in r[
+                "detector"]["steps"]] for r in (two, one, floor_run)),
+            name_power)}
+
+    # s/step and the all-reduce's share
+    steady = {k: steady_steps(r["espnet"]["timings"])
+              for k, r in (("one", one), ("two", two))}
+    ar = two["espnet"]["all_reduce_s"]
+    esp_ar = {}
+    for scale in steady["two"]:
+        rows = [(t[3], a) for t, a in zip(two["espnet"]["timings"], ar)
+                if t[0] == scale]
+        esp_ar[scale] = sum(a for _, a in rows) / sum(t for t, _ in rows)
+    print("distributed gseg-train s/step at steady state, one device / two"
+          " ranks (all-reduce share): " + ", ".join(
+              f"{k} {steady['one'][k]['s_per_step']:.4f} / "
+              f"{steady['two'][k]['s_per_step']:.4f} ({esp_ar[k]:.3f})"
+              for k in steady["two"] if k in steady["one"])
+          + f"; epoch {one['espnet']['seconds']:.2f} s / "
+          f"{two['espnet']['seconds']:.2f} s | {name_power}", flush=True)
+    timing = {}
+    for key in ("segformer", "detector"):
+        rows = {k: r[key]["steps"][1:] for k, r in (("one", one),
+                                                    ("two", two))}
+        timing[key] = {k: float(np.mean([s[1] for s in v]))
+                       for k, v in rows.items()}
+        timing[key]["share"] = (sum(s[2] for s in rows["two"])
+                                / sum(s[1] for s in rows["two"]))
+        print(f"distributed {key} s/step after the first, one device "
+              f"{timing[key]['one']:.4f}, two ranks {timing[key]['two']:.4f}"
+              f", all-reduce share {timing[key]['share']:.3f} | "
+              f"{name_power}", flush=True)
+
+    # K3: once a step in each rank; the first step's proposals
+    k3 = [r["run"]["detector"]["k3"] for r in reports]
+    launches = [r["run"]["launches"] for r in reports]
+    per_run = DIST_DET_STEPS if device == "cuda" else 0
+    check(k3 == [per_run] * 2 and one["detector"]["k3"] == per_run
+          and all(l_[:2] == (0, 0) for l_ in launches),
+          f"K3 launched {k3} in the ranks, {one['detector']['k3']} on one "
+          f"device; counts {launches}")
+    props = np.concatenate([r["run"]["detector"]["proposals"]
+                            for r in reports])
+    equal = proposal_match(props, one["detector"]["proposals"])
+    floor_equal = proposal_match(floor_run["detector"]["proposals"],
+                                 one["detector"]["proposals"])
+    print(f"distributed detector: K3 launches {k3} in the ranks "
+          f"({sum(k3)} = {DIST_DET_STEPS} steps x 2 ranks), "
+          f"{one['detector']['k3']} on one device; first step's proposals "
+          f"found in one device's (per window, 0.01 px): {equal:.4f} (bar "
+          f"{DIST_PROPOSALS}; one device with rows reversed "
+          f"{floor_equal:.4f}) | {name_power}", flush=True)
+    check(equal >= DIST_PROPOSALS, f"proposals equal on {equal}")
+
+    # one shard's RPN problem through K3 against nms_plain
+    cfg = FasterRCNNConfig(image_size=(DET_TRAIN_SIZE, DET_TRAIN_SIZE),
+                           backbone=DET_TRAIN_BACKBONE)
+    sampler = SlideWindowSampler(
+        "OPT_PAS", str(trees["detector"] / "data"),
+        str(trees["detector"] / "targets.txt"),
+        DetectorTrainConfig(image_size=DET_TRAIN_SIZE,
+                            batch_size=DET_TRAIN_BATCH))
+    rng = np.random.default_rng(0)
+    sampler.sample_batch(rng)
+    shard = [a[:DET_TRAIN_BATCH // 2] for a in sampler.sample_batch(rng)]
+    model = native_train_model(init_detector_state(0, cfg), device).train()
+    with torch.no_grad(), tf32(False, False):
+        x = upload_batch(shard, torch.device(device))[0]
+        obj, deltas = model.rpn_outputs(model.features(x))
+        boxes, scores = model.rpn_candidates(
+            obj, deltas, build_anchors(model.config).to(device))
+    _, n_, k_, thr = K3_TRAIN_SHAPES["native"]
+    label = "native training rpn, one shard"
+    k3_case = {label: nms_case(boxes.contiguous(), scores.contiguous(), k_,
+                               thr)}
+    print_nms_case(label, k3_case[label], name_power)
+    del model, x, obj, deltas, boxes, scores
+
+    # the nccl path: one process, one rank of its own, through the CLI's
+    # own launch
+    port = distributed.plan_ranks(1, device=device).address
+    nccl_argv = dist_train_argv(trees, "nccl", device=device)[
+        "segformer"] + ["--coordinator", port, "--num_processes", "1"]
+    nccl_plan = distributed.init_distributed(port, 1, None, 0, device)
+    check(nccl_plan.backend == ("nccl" if device == "cuda" else "gloo")
+          and nccl_plan.world == 1, f"nccl plan {nccl_plan}")
+    t0 = time.perf_counter()
+    out_dir = Path(segformer_train_cli.main(nccl_argv))
+    nccl_s = time.perf_counter() - t0
+    nccl_losses = distributed.last_reports[0]["losses"]
+    check((out_dir / "log.txt").is_file()
+          and len(nccl_losses) == len(one["segformer"]["steps"])
+          and all(math.isfinite(v) for v in nccl_losses),
+          f"nccl run: {out_dir} {nccl_losses}")
+    nccl_rel = max(rel_diffs(nccl_losses,
+                             [s[0] for s in one["segformer"]["steps"]]))
+    print(f"distributed nccl: gseg-segformer-train --coordinator {port} "
+          f"--num_processes 1 launched one rank with backend "
+          f"{nccl_plan.backend} on cuda:0, {len(nccl_losses)} steps, "
+          f"losses against one device largest rel {nccl_rel:.3e} (bar "
+          f"{parity['segformer']['bar']:.3e}), {nccl_s:.2f} s | "
+          f"{name_power}", flush=True)
+    check(nccl_rel <= parity["segformer"]["bar"], "the nccl run disagrees")
+    print(f"distributed phase: setup {setup_s:.2f} s, one device "
+          f"{one_s:.2f} s, floor run {floor_s:.2f} s, two ranks "
+          f"{ranks_s:.2f} s (launch included), nccl {nccl_s:.2f} s | "
+          f"{name_power}", flush=True)
+    return {"launches": sum(k3), "k3": k3_case, "parity": parity,
+            "timing": timing, "espnet_share": esp_ar,
+            "grad": {"cos": cos, "norm_rel": norm_rel,
+                     "loss_rel": loss_rel, "share": share},
+            "proposals_equal": equal, "nccl_rel": nccl_rel}
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["detector_training",
-                                           "inference_surface"],
+                                           "inference_surface",
+                                           "distributed_training"],
                         help="build, then run this phase alone and print "
                              "its lines, without the result lines")
     only = parser.parse_args(argv).only
@@ -4309,6 +4864,8 @@ def main(argv=None) -> int:
     if only is not None:
         if only == "detector_training":
             detector_training_phase(name_power)
+        elif only == "distributed_training":
+            distributed_training_phase(name_power)
         else:
             # the e2e phase's slide, folds and detector, without its runs
             path = WORK / "e2e" / "data" / "E2E.tiff"
@@ -4530,6 +5087,8 @@ def main(argv=None) -> int:
     surface = inference_surface_phase(e2e, WORK / "folds", model_dir,
                                       name_power)
     phase_done("inference surface")
+    dist = distributed_training_phase(name_power)
+    phase_done("distributed training")
     check(wsi.python_fallbacks == 0 and native_reader.unavailable_reason
           is None, f"{wsi.python_fallbacks} slides opened with the Python "
           f"reader: {native_reader.unavailable_reason}")
@@ -4596,12 +5155,14 @@ def main(argv=None) -> int:
                   segformer_e2e_launches=segformer_e2e["launches"][1]),
         dict(nms_entry("ResNet-50-C4 detector",
                        {**k3, "native training rpn":
-                        det_training["k3"]["native training rpn"]},
+                        det_training["k3"]["native training rpn"],
+                        **dist["k3"]},
                        "rpn seeded", det_launches),
              training_launches=training["launches"][2],
              detector_training_launches=(
                  det_training["launches"]["native f32"]
-                 + det_training["launches"]["native bf16"])),
+                 + det_training["launches"]["native bf16"]),
+             distributed_training_launches=dist["launches"]),
         dict(nms_entry("OD-API frozen-graph detector",
                        {**od_k3, **selftest["k3"], **surface["k3"],
                         "od_api training rpn":

@@ -8,9 +8,9 @@ Counterpart of ``glomeruli_segmentation_tpu/cli/segformer_train.py``, with
 the same flags and defaults (the flag surface of
 ``module/SegFormer/train/train.py:121-155``), plus ``--device`` (default
 ``cuda``, which raises without a card; ``cpu`` runs on the CPU).
-``--data_parallel`` other than 0, ``--coordinator``, ``--num_processes``
-and ``--process_id`` raise ``SystemExit`` naming themselves: the
-multi-card trainer is not ported.
+``--data_parallel``, ``--coordinator``, ``--num_processes`` and
+``--process_id`` train on the ranks of ``parallel/distributed.py``, as
+``cli/train.py`` does.
 """
 import argparse
 
@@ -52,21 +52,27 @@ def build_parser() -> argparse.ArgumentParser:
                              "optimizer state and norm statistics stay "
                              "float32 (default: full float32, TF32 off)")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="shard batches over an N-device mesh "
+                             "(-1 = all devices; 0 = single device)")
     parser.add_argument("--coordinator", default=None,
-                        help="not ported: multi-host coordinator")
+                        help="multi-host: coordinator address host:port "
+                             "(or GSEG_COORDINATOR); combine with "
+                             "--data_parallel -1 to span the global mesh")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="not ported: multi-host process count")
+                        help="multi-host: total process count "
+                             "(or GSEG_NUM_PROCESSES)")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="not ported: multi-host rank")
+                        help="multi-host: this process's rank "
+                             "(or GSEG_PROCESS_ID)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     return parser
 
 
-def main(argv=None) -> str:
-    """Fine-tune; returns the output directory."""
-    return train_segformer(build_parser().parse_args(argv))
+def main(argv=None, device=None, devices=None) -> str:
+    """Fine-tune; returns the output directory.  ``device`` overrides
+    ``--device``; ``devices`` lists the ranks' devices."""
+    return train_segformer(build_parser().parse_args(argv), device, devices)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,16 @@
 Counterpart of ``glomeruli_segmentation_tpu/cli/train.py``, with the same
 flags and defaults (the flag surface of ``module/espnet/train/
 main.py:450-477``), plus ``--device`` (default ``cuda``, which raises
-without a card; ``cpu`` runs on the CPU).  ``--data_parallel`` other than
-0, ``--coordinator``, ``--num_processes`` and ``--process_id`` raise
-``SystemExit`` naming themselves: the multi-card trainer is not ported.
+without a card; ``cpu`` runs on the CPU).  ``--data_parallel N`` trains
+on N ranks, one process per card (``parallel/distributed.py``; under
+``--device cpu`` every rank runs on the CPU); across hosts every host runs
+the command with ``--coordinator HOST:PORT --num_processes P --process_id
+p`` (or ``GSEG_COORDINATOR``, ``GSEG_NUM_PROCESSES``, ``GSEG_PROCESS_ID``)
+and starts N / P ranks:
+
+    python -m glomeruli_segmentation_tpu_torch.cli.train ... \
+        --data_parallel 8 --coordinator host0:29500 --num_processes 2 \
+        --process_id 0
 """
 from argparse import ArgumentParser
 
@@ -50,7 +57,8 @@ def build_parser() -> ArgumentParser:
                         help="coupled L2 weight decay (reference default "
                              "5e-4, module/espnet/train/main.py:382)")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="shard batches over an N-device mesh "
+                             "(0 = single device, -1 = all devices)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 autocast of the forward; parameters, "
                              "gradients, optimizer state and BN statistics "
@@ -62,20 +70,27 @@ def build_parser() -> ArgumentParser:
                              "DataLoader's worker prefetch); 0 = "
                              "synchronous loading")
     parser.add_argument("--coordinator", default=None,
-                        help="not ported: multi-host coordinator")
+                        help="multi-host: coordinator address host:port "
+                             "(or GSEG_COORDINATOR); combine with "
+                             "--data_parallel -1 to span the global mesh")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="not ported: multi-host process count")
+                        help="multi-host: total process count "
+                             "(or GSEG_NUM_PROCESSES)")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="not ported: multi-host rank")
+                        help="multi-host: this process's rank "
+                             "(or GSEG_PROCESS_ID)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     return parser
 
 
-def main(argv=None):
+def main(argv=None, device=None, devices=None):
     """Train; returns the :class:`EspnetTrainer` (its ``timings`` hold
-    each step's loader wait and step time)."""
-    return train_validate_segmentation(build_parser().parse_args(argv))
+    each step's loader wait and step time; of rank 0 under a data axis).
+    ``device`` overrides ``--device``; ``devices`` lists the ranks'
+    devices (by default the visible cards)."""
+    return train_validate_segmentation(build_parser().parse_args(argv),
+                                       device, devices)
 
 
 if __name__ == "__main__":

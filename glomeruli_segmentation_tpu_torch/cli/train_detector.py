@@ -14,8 +14,9 @@ slide layout ``make_seg_data`` reads, ``<data_dir>/<staining_dir>/
 <patient>/{*.ndpi, annotations/*.xml}``, and writes ``detector.ckpt.pth``
 (the native ResNet-50-C4 or tiny Faster R-CNN) or, with ``--finetune_pb``,
 ``od_api_detector.ckpt.pth`` into ``--output_dir``; both packages'
-``gseg-detect`` load either.  ``--data_parallel`` other than 0 raises
-``SystemExit`` naming itself: the data-parallel trainer is not ported.
+``gseg-detect`` load either.  ``--data_parallel N`` splits the window
+batch over N ranks, one process per card (``parallel/distributed.py``;
+under ``--device cpu`` every rank runs on the CPU); the batch must divide.
 """
 import argparse
 
@@ -39,7 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "and the loss stay float32 (default: full "
                              "float32, TF32 off)")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported: must stay 0")
+                        help="shard window batches over an N-device mesh "
+                             "(0 = off, -1 = all devices); params and "
+                             "optimizer state replicate")
     parser.add_argument("--finetune_pb", default=None,
                         help="fine-tune the reference's downloaded OD-API "
                              "frozen graph (frozen_inference_graph.pb) "
@@ -50,9 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> str:
-    """Train; returns the checkpoint's path."""
+def main(argv=None, device=None, devices=None) -> str:
+    """Train; returns the checkpoint's path.  ``device`` overrides
+    ``--device``; ``devices`` lists the ranks' devices."""
     args = build_parser().parse_args(argv)
+    device = device if device is not None else args.device
     from ..models.faster_rcnn import FasterRCNNConfig
     from ..train.detector_driver import DetectorTrainConfig, train_detector
 
@@ -66,7 +71,7 @@ def main(argv=None) -> str:
                                args.target_list, args.output_dir, config,
                                pb_path=args.finetune_pb,
                                data_parallel=args.data_parallel,
-                               device=args.device)
+                               device=device, devices=devices)
         print(f"saved {path}")
         return path
     model_config = FasterRCNNConfig(
@@ -75,7 +80,7 @@ def main(argv=None) -> str:
     path = train_detector(args.staining, args.data_dir, args.target_list,
                           args.output_dir, config, model_config,
                           data_parallel=args.data_parallel, bf16=args.bf16,
-                          device=args.device)
+                          device=device, devices=devices)
     print(f"saved {path}")
     return path
 

@@ -32,6 +32,7 @@ from torch import nn
 from ..ops.boxes import clip_boxes, decode_boxes, generate_anchors
 from ..ops.nms import gather_padded, nms, nms_plain, premask
 from ..ops.roi_align import crop_and_resize
+from ..parallel import distributed
 from .resnet import (ResNetBlock4, ResNetC4, TinyBackbone, TinyHead,
                      detector_state, fold_batchnorm, train_state_dict)
 
@@ -301,6 +302,16 @@ class FasterRCNN(nn.Module):
         n, p, s, _, c = crops.shape
         return crops.reshape(n * p, s, s, c).permute(0, 3, 1, 2)
 
+    def roi_chunk(self, n: int) -> int:
+        """Proposals per second-stage chunk for ``n`` windows: the config's,
+        or the largest with B * chunk <= 1024, where B is the global batch:
+        in a rank of a data axis ``n`` times the ranks, as GSPMD sees the
+        JAX package's sharded batch (a chunk from the local ``n`` would
+        normalise the training form's block-4 BatchNorms over other groups
+        of crops)."""
+        return self.config.roi_chunk or max(
+            1, 1024 // (n * distributed.world()))
+
     def forward(self, images: torch.Tensor, anchors: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
         cfg = self.config
@@ -311,7 +322,7 @@ class FasterRCNN(nn.Module):
             proposals, prop_scores = self.propose(rpn_obj, rpn_deltas,
                                                   anchors)
         n, p = proposals.shape[:2]
-        chunk = min(cfg.roi_chunk or max(1, 1024 // n), p)
+        chunk = min(self.roi_chunk(n), p)
         scores_parts, deltas_parts = [], []
         for start in range(0, p, chunk):
             roi = self.roi_features(feats, proposals[:, start: start + chunk])

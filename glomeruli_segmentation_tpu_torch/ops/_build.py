@@ -6,10 +6,14 @@ Each ``csrc/<name>.cu`` has a plain C interface and may include the
 ``<hash>`` covers the source, the headers and the flags, so an edited
 source or header is rebuilt and an unchanged one is reused.  The library is loaded
 with ``ctypes``.  Nothing is built or loaded when this module is imported.
+The processes of a host (the ranks of a data-parallel trainer) build under
+one ``flock`` on ``build/torch_kernels/lock``, so a host runs each ``nvcc``
+once and the others load what it built.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,13 +60,22 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str]) -> None:
     """Compile every named source whose library is missing, starting one
-    ``nvcc`` per source at once; raise with the compiler's output if any
-    fails."""
+    ``nvcc`` per source at once, under the host's build lock; raise with
+    the compiler's output if any fails."""
+    names = [n for n in names if not library_path(n).exists()]
+    if not names:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_locked(names)
+
+
+def _build_locked(names: Iterable[str]) -> None:
     running = []
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists():  # another process built it while this one waited
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
@@ -73,6 +86,7 @@ def build(names: Iterable[str]) -> None:
     for name, proc, tmp, out, t0 in running:
         log, _ = proc.communicate()
         if proc.returncode:
+            tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed on {name}.cu:\n{log}")
             continue
         os.replace(tmp, out)

@@ -22,9 +22,17 @@ forward, the backward and Adam's update (``torch.optim.Adam(lr,
 eps=1e-8)``, no weight decay, as ``optax.adam``).  The proposals go
 through :func:`..ops.nms.nms` without a graph: one K3 launch a step on the
 card.  ``bf16`` autocasts the forward to bfloat16; parameters, BN
-statistics, box math and the loss stay float32.  ``data_parallel`` other
-than 0 (the JAX driver's window mesh) raises ``SystemExit``: it is not
-ported.
+statistics, box math and the loss stay float32.
+
+``data_parallel`` N (the JAX driver's window mesh) trains on N ranks of
+``parallel/distributed.py``: every rank draws the same windows and keeps
+its block of B / N (the batch must divide, as ``make_data_mesh`` asks);
+parameters and Adam's state stay replicated; the training form's
+BatchNorms take the global batch's statistics and its ROI chunk comes from
+the global batch (``FasterRCNN.roi_chunk``); the per-window means of the
+losses become the ranks' sums over B, summed with the gradients over the
+ranks.  Each rank runs the RPN NMS of its own windows: one K3 launch a
+step per rank on the card.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device, tf32, wsi
+from ..parallel import distributed
 from ..utils.annotation import AnnotationHandler
 from ..utils.glomus_handler import GlomusHandler
 
@@ -147,21 +156,30 @@ class SlideWindowSampler:
         return images, gt_boxes, gt_classes, gt_valid
 
 
-def refuse_data_parallel(data_parallel: int) -> None:
-    """The JAX driver's window mesh is not ported: ``--data_parallel``
-    other than 0 raises ``SystemExit`` naming itself."""
-    if data_parallel:
-        raise SystemExit(f"not ported: --data_parallel {data_parallel} (the "
-                         "data-parallel detector trainer)")
+def plan_windows(data_parallel: int, batch_size: int, device="cuda",
+                 devices=None) -> Optional[distributed.RankPlan]:
+    """The ranks of ``data_parallel`` for a window batch of
+    ``batch_size`` (None for one device, and inside a rank); the batch
+    must split evenly over them, as the JAX driver's ``make_data_mesh``
+    asks."""
+    if distributed.joined():
+        return None
+    plan = distributed.plan_ranks(data_parallel, device=device,
+                                  devices=devices)
+    if plan is not None and batch_size % plan.world:
+        raise ValueError(f"batch_size {batch_size} must be a multiple of "
+                         f"the data-axis size {plan.world}")
+    return plan
 
 
 def upload_batch(batch, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """A sampler batch as tensors on ``device``: the windows (N, H, W, 3)
     as float32 (cast on the device from the uint8 upload), the GT boxes,
-    classes and valid mask.  On a card each goes through pinned memory
-    without waiting."""
+    classes and valid mask; in a data axis, this rank's rows.  On a card
+    each goes through pinned memory without waiting."""
     out = []
     for arr in batch:
+        arr = distributed.shard_rows(arr)
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
@@ -176,22 +194,31 @@ def train_step(model, optimizer, forward, anchors, batch, bf16: bool = False
     x, anchors)`` (the stage outputs), :func:`.detector_train.
     detector_loss` in float32, backward, the optimizer's update.  Both TF32
     switches are held off under the port's TF32 lock from the forward
-    through the update.  Returns the losses (detached, on the device) and
-    the step's proposals."""
+    through the update.  In a data axis the batch is this rank's rows, the
+    gradients are summed over the ranks before the update and the losses
+    are the global batch's.  Returns the losses (detached, on the device)
+    and the step's proposals (of this rank's windows)."""
     from .detector_train import detector_loss
 
     x, gb, gc, gv = batch
+    global_batch = (x.shape[0] * distributed.world()
+                    if distributed.joined() else None)
     model.train()
     with tf32(False, False):
         optimizer.zero_grad(set_to_none=True)
         with (torch.autocast(x.device.type, dtype=torch.bfloat16) if bf16
               else contextlib.nullcontext()):
             out = forward(model, x, anchors)
-        losses = detector_loss(anchors, out, gb, gc, gv)
+        losses = detector_loss(anchors, out, gb, gc, gv, global_batch)
         losses["total"].backward()
+        distributed.reduce_gradients(model)
         optimizer.step()
-    return ({k: v.detach() for k, v in losses.items()},
-            out["proposals"].detach())
+    if global_batch is None:
+        losses = {k: v.detach() for k, v in losses.items()}
+    else:
+        losses = dict(zip(losses, distributed.all_reduce_sum(
+            torch.stack(list(losses.values())))))
+    return losses, out["proposals"].detach()
 
 
 def native_forward(model, x, anchors):
@@ -211,13 +238,24 @@ def run_steps(sampler: SlideWindowSampler, rng: np.random.Generator, steps,
               bf16: bool, log_every: int) -> None:
     """``steps`` training steps, each on the sampler's next batch; logs
     every ``log_every`` steps (the only reads of the losses: the steps are
-    otherwise enqueued without waiting for the device)."""
+    otherwise enqueued without waiting for the device).  In a rank, reports
+    its K3 launches and every step's losses."""
+    from ..ops.nms import nms
+
+    launches = nms.launches
+    history = []
     for i in range(steps):
         batch = upload_batch(sampler.sample_batch(rng), device)
         losses, _ = train_step(model, optimizer, forward, anchors, batch,
                                bf16)
-        if i % log_every == 0:
+        if distributed.joined():
+            history.append(torch.stack(list(losses.values())))
+        if i % log_every == 0 and distributed.is_primary():
             print(log_line(i, losses))
+    if history:
+        distributed.report(
+            k3_launches=nms.launches - launches, loss_names=list(losses),
+            losses=torch.stack(history).double().cpu().tolist())
 
 
 def train_detector(staining: str, data_dir: str, target_list: str,
@@ -225,19 +263,28 @@ def train_detector(staining: str, data_dir: str, target_list: str,
                    config: Optional[DetectorTrainConfig] = None,
                    model_config=None, log_every: int = 50,
                    data_parallel: int = 0, bf16: bool = False,
-                   device="cuda") -> str:
+                   device="cuda", devices=None) -> str:
     """Train and save ``detector.ckpt.pth``; returns its path.  The
     weights start from :func:`..convert.detector_import.
     init_detector_state` (seed ``config.seed``).  ``device`` is ``cuda``
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU; ``data_parallel`` trains on that
+    many ranks (on ``devices``, by default the visible cards or, under the
+    CPU, the CPU)."""
+    config = config or DetectorTrainConfig()
+    plan = plan_windows(data_parallel, config.batch_size, device, devices)
+    return distributed.run(plan, _train_native, staining, data_dir,
+                           target_list, output_dir, config, model_config,
+                           log_every, bf16, device)
+
+
+def _train_native(staining, data_dir, target_list, output_dir, config,
+                  model_config, log_every, bf16, device) -> str:
     from ..convert.detector_import import (init_detector_state,
                                            save_detector_checkpoint)
     from ..models.faster_rcnn import (FasterRCNN, FasterRCNNConfig,
                                       build_anchors)
 
-    refuse_data_parallel(data_parallel)
-    dev = resolve_device(device)
-    config = config or DetectorTrainConfig()
+    dev = distributed.rank_device() or resolve_device(device)
     if model_config is None:
         model_config = FasterRCNNConfig(
             image_size=(config.image_size, config.image_size))
@@ -255,7 +302,8 @@ def train_detector(staining: str, data_dir: str, target_list: str,
     run_steps(sampler, rng, config.steps, model, optimizer, native_forward,
               anchors, dev, bf16, log_every)
 
-    os.makedirs(output_dir, exist_ok=True)
-    return save_detector_checkpoint(
-        model.detector_state(), model_config,
-        os.path.join(output_dir, "detector.ckpt.pth"))
+    path = os.path.join(output_dir, "detector.ckpt.pth")
+    if distributed.is_primary():
+        os.makedirs(output_dir, exist_ok=True)
+        save_detector_checkpoint(model.detector_state(), model_config, path)
+    return path

@@ -14,14 +14,16 @@ GT is passed padded: ``gt_boxes`` (N, G, 4) pixel [ymin, xmin, ymax, xmax],
 
 The JAX package maps a per-window function over the batch; here every
 function works on the whole batch at once, with the same operations in the
-same order, in float32.  Ties in every argmax go to the lowest index, as
-``jnp.argmax``.  Where two GT rows name the same best anchor (a padded row,
-IoU -1 everywhere, names anchor 0), the later row's flag wins, as the JAX
-package's scatter gives on the CPU.
+same order, in float32.  In a rank of a data axis (``global_batch``) the
+batch means become the rank's sums over the global batch size, so that the
+ranks' losses sum to the global batch's.  Ties in every argmax go to the
+lowest index, as ``jnp.argmax``.  Where two GT rows name the same best
+anchor (a padded row, IoU -1 everywhere, names anchor 0), the later row's
+flag wins, as the JAX package's scatter gives on the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -90,8 +92,18 @@ def _mean_over(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             / mask.sum(dim=-1).clamp_min(1))
 
 
+def _batch_mean(values: torch.Tensor, global_batch: Optional[int]
+                ) -> torch.Tensor:
+    """The mean over the windows, or this rank's share of the global
+    batch's mean: the sum over ``global_batch``."""
+    if global_batch is None:
+        return values.mean()
+    return values.sum() / global_batch
+
+
 def rpn_loss(anchors, rpn_obj, rpn_deltas, gt_boxes, gt_classes, gt_valid,
-             pos_iou: float = 0.7, neg_iou: float = 0.3
+             pos_iou: float = 0.7, neg_iou: float = 0.3,
+             global_batch: Optional[int] = None
              ) -> Dict[str, torch.Tensor]:
     """Batched RPN loss. rpn_obj: (N, A, 2), rpn_deltas: (N, A, 4)."""
     best_gt, pos, neg = _assign(anchors, gt_boxes, gt_valid, pos_iou,
@@ -104,11 +116,14 @@ def rpn_loss(anchors, rpn_obj, rpn_deltas, gt_boxes, gt_classes, gt_valid,
     targets = encode_boxes(_take(gt_boxes, best_gt), anchors)
     reg = smooth_l1(rpn_deltas - targets).sum(-1)
     reg_loss = _mean_over(reg, pos)
-    return {"rpn_cls": cls_loss.mean(), "rpn_reg": reg_loss.mean()}
+    return {"rpn_cls": _batch_mean(cls_loss, global_batch),
+            "rpn_reg": _batch_mean(reg_loss, global_batch)}
 
 
 def box_head_loss(proposals, class_scores, box_deltas, gt_boxes, gt_classes,
-                  gt_valid, pos_iou: float = 0.5) -> Dict[str, torch.Tensor]:
+                  gt_valid, pos_iou: float = 0.5,
+                  global_batch: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
     """Second-stage loss. proposals: (N, P, 4), class_scores: (N, P, C+1),
     box_deltas: (N, P, C, 4)."""
     iou = _masked_iou(proposals, gt_boxes, gt_valid)       # (N, P, G)
@@ -128,18 +143,22 @@ def box_head_loss(proposals, class_scores, box_deltas, gt_boxes, gt_classes,
         *cls_idx.shape, 1, 4))[..., 0, :]
     reg = smooth_l1(chosen - targets).sum(-1)
     reg_loss = _mean_over(reg, pos & live)
-    return {"roi_cls": cls_loss.mean(), "roi_reg": reg_loss.mean()}
+    return {"roi_cls": _batch_mean(cls_loss, global_batch),
+            "roi_reg": _batch_mean(reg_loss, global_batch)}
 
 
-def detector_loss(anchors, outputs, gt_boxes, gt_classes, gt_valid
+def detector_loss(anchors, outputs, gt_boxes, gt_classes, gt_valid,
+                  global_batch: Optional[int] = None
                   ) -> Dict[str, torch.Tensor]:
     """The four losses and their sum, ``total``; no gradient reaches the
-    proposals."""
+    proposals.  With ``global_batch``, this rank's shares of them."""
     losses = rpn_loss(anchors, outputs["rpn_objectness"],
-                      outputs["rpn_deltas"], gt_boxes, gt_classes, gt_valid)
+                      outputs["rpn_deltas"], gt_boxes, gt_classes, gt_valid,
+                      global_batch=global_batch)
     losses.update(box_head_loss(
         outputs["proposals"].detach(), outputs["class_scores"],
-        outputs["box_deltas"], gt_boxes, gt_classes, gt_valid))
+        outputs["box_deltas"], gt_boxes, gt_classes, gt_valid,
+        global_batch=global_batch))
     losses["total"] = (losses["rpn_cls"] + losses["rpn_reg"]
                        + losses["roi_cls"] + losses["roi_reg"])
     return losses

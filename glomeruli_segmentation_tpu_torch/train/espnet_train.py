@@ -30,9 +30,19 @@ repo lies on this path):
 Float32 steps run with both TF32 switches off from the forward through
 the backward and the optimizer step; ``--bf16`` autocasts the forward only
 (parameters, gradients, Adam state and BN statistics stay float32, and the
-loss reduces in float32).  The multi-card flags (``--data_parallel``,
-``--coordinator``, ``--num_processes``, ``--process_id``) are not ported
-and raise.
+loss reduces in float32).
+
+``--data_parallel N`` (and ``--coordinator``, ``--num_processes``,
+``--process_id``) trains on the ranks of ``parallel/distributed.py``, as
+the JAX trainer trains on its mesh: a ragged batch is padded by repeating
+its last sample up to a multiple of the ranks, with the ``valid`` mask
+taking the padded rows out of the loss and the histogram (BatchNorm's
+statistics still see them, as GSPMD's do); each rank keeps its rows; the
+BN statistics, the loss's numerator and denominator and the histogram are
+sums over the ranks, and the gradients are summed before Adam steps.  Rank
+0 scans the dataset for the statistics cache behind a barrier and writes
+every artifact, with barriers before and after the checkpoints; every rank
+reads the full state on ``--resume``.
 """
 from __future__ import annotations
 
@@ -53,26 +63,15 @@ from ..data.dataset import DataLoader, SegmentationDataset
 from ..data.load_data import LoadData
 from ..eval.iou_eval import IouEval, confusion_matrix
 from ..models.espnet import ESPNet, ESPNetEncoder
+from ..parallel import distributed
 from .batch_norm import use_flax_batch_norm
-from .criteria import cross_entropy_2d
+from .criteria import cross_entropy_2d_sums
 
 # the port's own full-state checkpoint (the JAX trainer's is the orbax
 # directory ``native_ckpt``; neither reads the other's)
 FULL_STATE = "torch_full_state.pth"
 # the order in which each epoch runs the training scales
 TRAIN_SCALES = ("scale1", "scale2", "scale4", "scale3", "main")
-
-
-def refuse_unported(args) -> None:
-    """The multi-card flags raise ``SystemExit`` naming themselves."""
-    unported = [name for name, val in (
-        ("--data_parallel", getattr(args, "data_parallel", 0) or 0),
-        ("--coordinator", getattr(args, "coordinator", None)),
-        ("--num_processes", getattr(args, "num_processes", None)),
-        ("--process_id", getattr(args, "process_id", None)),
-    ) if val]
-    if unported:
-        raise SystemExit("not ported: " + ", ".join(unported))
 
 
 def net_params(model: torch.nn.Module) -> int:
@@ -107,11 +106,22 @@ def state_dict_cpu(model: torch.nn.Module) -> dict:
             model.state_dict().items()}
 
 
+def pad_batch(x: np.ndarray, y: np.ndarray):
+    """Pad a ragged batch to a multiple of the data axis by repeating its
+    last sample (JAX ``EspnetTrainer._pad_batch``); returns (x, y, the
+    (N,) bool mask of the real rows).  Outside a data axis, unchanged."""
+    n = x.shape[0]
+    pad = distributed.pad_rows(n)
+    if pad:
+        x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+        y = np.concatenate([y, np.repeat(y[-1:], pad, axis=0)])
+    return x, y, np.arange(n + pad) < n
+
+
 class EspnetTrainer:
     def __init__(self, args, device=None):
-        refuse_unported(args)
         self.args = args
-        self.device = resolve_device(
+        self.device = distributed.rank_device() or resolve_device(
             device if device is not None else getattr(args, "device",
                                                       "cuda"))
         self.bf16 = bool(getattr(args, "bf16", False))
@@ -119,16 +129,28 @@ class EspnetTrainer:
         # one row per training step: (scale, batch shape, loader wait s,
         # step s, ending with the loss and histogram read back)
         self.timings = []
+        # one (scale, loss) per training step
+        self.losses = []
 
     # ---------------- setup ----------------
     def load_data(self):
+        """The dataset statistics: scanned and cached by rank 0 when the
+        cache is missing, read from the cache by the other ranks after
+        it is written."""
         args = self.args
-        if not os.path.isfile(args.cached_data_file):
-            data = LoadData(args.data_dir, args.classes,
-                            args.cached_data_file).process_data()
-            if data is None:
-                raise SystemExit("Error while pickling data. Please check.")
-            return data
+        missing = distributed.from_primary(
+            "gseg_data_cache",
+            str(not os.path.isfile(args.cached_data_file)))
+        if missing == "True":
+            if distributed.is_primary():
+                data = LoadData(args.data_dir, args.classes,
+                                args.cached_data_file).process_data()
+                if data is None:
+                    raise SystemExit(
+                        "Error while pickling data. Please check.")
+                distributed.barrier("gseg_data_cache")
+                return data
+            distributed.barrier("gseg_data_cache")
         with open(args.cached_data_file, "rb") as f:
             return pickle.load(f)
 
@@ -202,12 +224,33 @@ class EspnetTrainer:
         return args.lr * (0.5 ** (epoch // args.step_loss))
 
     # ---------------- steps ----------------
+    def _loss(self, logits: torch.Tensor, y: torch.Tensor,
+              valid: Optional[torch.Tensor]):
+        """(the share of the loss to backpropagate, the loss, the KxK
+        confusion histogram of the argmax), over the global batch: in a
+        data axis one all-reduce sums the numerator, the denominator and
+        the histogram over the ranks."""
+        num, den = cross_entropy_2d_sums(logits, y, self.class_weights,
+                                         valid)
+        hist = confusion_matrix(logits.detach().argmax(1), y,
+                                logits.shape[1], sample_valid=valid)
+        if not distributed.joined():
+            loss = num / den
+            return loss, loss.detach(), hist
+        k = hist.shape[0]
+        sums = distributed.all_reduce_sum(torch.cat([
+            num.detach().double()[None], den.detach().double()[None],
+            hist.reshape(-1).double()]))
+        return (num / sums[1].float(), (sums[0] / sums[1]).float(),
+                sums[2:].reshape(k, k).to(hist.dtype))
+
     def train_step(self, model, optimizer, x: torch.Tensor, y: torch.Tensor,
                    valid: Optional[torch.Tensor] = None):
-        """One step on an NCHW batch on the device: forward in train mode,
-        the f32 loss from f32 logits, backward, Adam.  Returns the loss and
-        the KxK confusion histogram of the forward's argmax, on the
-        device."""
+        """One step on an NCHW batch on the device (in a data axis, this
+        rank's rows): forward in train mode, the f32 loss from f32 logits,
+        backward, the gradients summed over the ranks, Adam.  Returns the
+        loss and the KxK confusion histogram of the forward's argmax, of
+        the global batch, on the device."""
         model.train()
         # both TF32 switches off, held under the port's TF32 lock from the
         # forward through the backward (which autograd dispatches later)
@@ -216,13 +259,11 @@ class EspnetTrainer:
             optimizer.zero_grad(set_to_none=True)
             with autocast(self.device, self.bf16):
                 logits = model(x)
-            logits = logits.float()
-            loss = cross_entropy_2d(logits, y, self.class_weights, valid)
-            loss.backward()
+            share, loss, hist = self._loss(logits.float(), y, valid)
+            share.backward()
+            distributed.reduce_gradients(model)
             optimizer.step()
-        hist = confusion_matrix(logits.detach().argmax(1), y,
-                                logits.shape[1], sample_valid=valid)
-        return loss.detach(), hist
+        return loss, hist
 
     @torch.no_grad()
     def val_step(self, model, x: torch.Tensor, y: torch.Tensor,
@@ -231,11 +272,20 @@ class EspnetTrainer:
         with tf32(False, False):
             with autocast(self.device, self.bf16):
                 logits = model(x)
-            logits = logits.float()
-            loss = cross_entropy_2d(logits, y, self.class_weights, valid)
-        hist = confusion_matrix(logits.argmax(1), y, logits.shape[1],
-                                sample_valid=valid)
+            _, loss, hist = self._loss(logits.float(), y, valid)
         return loss, hist
+
+    def _device_batch(self, x: np.ndarray, y: np.ndarray):
+        """A loader batch as this rank's (NCHW x, y, valid) on the device:
+        outside a data axis the whole batch and no mask; in one padded
+        and cut to the rank's rows."""
+        if not distributed.joined():
+            return (nchw(upload(x, self.device)), upload(y, self.device),
+                    None)
+        x, y, valid = (distributed.shard_rows(a)
+                       for a in pad_batch(np.asarray(x), np.asarray(y)))
+        return (nchw(upload(x, self.device)), upload(y, self.device),
+                upload(valid, self.device))
 
     def _read(self, loss: torch.Tensor, hist: torch.Tensor):
         """The loss and the histogram on the host, through one readback."""
@@ -252,17 +302,18 @@ class EspnetTrainer:
         t_wait = time.perf_counter()
         for i, (x, y) in enumerate(loader):
             t0 = time.perf_counter()
-            loss, hist = self.train_step(
-                model, optimizer, nchw(upload(x, self.device)),
-                upload(y, self.device))
-            loss, hist = self._read(loss, hist)
+            xd, yd, valid = self._device_batch(x, y)
+            loss, hist = self._read(*self.train_step(model, optimizer, xd,
+                                                     yd, valid))
             t1 = time.perf_counter()
-            self.timings.append((scale, tuple(x.shape), t0 - t_wait,
+            self.timings.append((scale, tuple(xd.shape), t0 - t_wait,
                                  t1 - t0))
+            self.losses.append((scale, loss))
             losses.append(loss)
             iou_eval.add_hist(hist)
-            print("[%d/%d] loss: %.3f time:%.2f" % (i, total, loss,
-                                                    t1 - t0))
+            if distributed.is_primary():
+                print("[%d/%d] loss: %.3f time:%.2f" % (i, total, loss,
+                                                        t1 - t0))
             t_wait = time.perf_counter()
         overall_acc, per_class_acc, per_class_iou, miou = iou_eval.get_metric()
         return (sum(losses) / max(len(losses), 1), overall_acc,
@@ -274,7 +325,7 @@ class EspnetTrainer:
         losses = []
         for x, y in loader:
             loss, hist = self._read(*self.val_step(
-                model, nchw(upload(x, self.device)), upload(y, self.device)))
+                model, *self._device_batch(x, y)))
             losses.append(loss)
             iou_eval.add_hist(hist)
         overall_acc, per_class_acc, per_class_iou, miou = iou_eval.get_metric()
@@ -318,18 +369,21 @@ class EspnetTrainer:
     # ---------------- the training run ----------------
     def run(self):
         args = self.args
+        primary = distributed.is_primary()
         data = self.load_data()
         model = self.build_model()
-        os.makedirs(args.savedir, exist_ok=True)
+        if primary:
+            os.makedirs(args.savedir, exist_ok=True)
 
         self.class_weights = torch.as_tensor(
             np.asarray(data["classWeights"], np.float32), device=self.device)
         print("Data statistics")
         print(data["mean"], data["std"])
         print(data["classWeights"])
-        with open(os.path.join(args.savedir, "mean_std.txt"), "w") as f:
-            f.write("mean[B G R]: {}\n".format(data["mean"]))
-            f.write("std[B G R]: {}".format(data["std"]))
+        if primary:
+            with open(os.path.join(args.savedir, "mean_std.txt"), "w") as f:
+                f.write("mean[B G R]: {}\n".format(data["mean"]))
+                f.write("std[B G R]: {}".format(data["std"]))
 
         loaders = self.build_loaders(data)
 
@@ -340,7 +394,7 @@ class EspnetTrainer:
 
         total_params = net_params(model)
         print("Total network parameters: " + str(total_params))
-        if getattr(args, "visualizeNet", False):
+        if primary and getattr(args, "visualizeNet", False):
             # graph rendering equivalent (reference: VisualizeGraph.make_dot,
             # main.py:236-244): structured per-module summary
             from ..utils.summary import model_summary
@@ -360,7 +414,8 @@ class EspnetTrainer:
 
         log_path = os.path.join(args.savedir, args.logFile)
         new_log = not os.path.isfile(log_path)
-        logger = open(log_path, "a" if not new_log else "w")
+        logger = open(log_path, "a" if not new_log else "w") if primary \
+            else open(os.devnull, "w")
         if new_log:
             logger.write("Parameters: %s" % (str(total_params)))
             logger.write("\n%s\t%s\t%s\t%s\t%s\t%s\t" % (
@@ -384,49 +439,89 @@ class EspnetTrainer:
             (loss_val, overall_acc_val, per_class_acc_val, per_class_iou_val,
              miou_val) = self.val_epoch(model, loaders["val"])
 
-            self._save_full_state(model, optimizer, epoch + 1)
-            state_dict = state_dict_cpu(model)
-            torch.save({
-                "epoch": epoch + 1,
-                "arch": repr(model),
-                "state_dict": state_dict,
-                "lossTr": float(loss_tr),
-                "lossVal": float(loss_val),
-                "iouTr": float(miou_tr),
-                "iouVal": float(miou_val),
-                "lr": lr,
-            }, os.path.join(args.savedir, "checkpoint.pth.tar"))
-            torch.save(state_dict,
-                       os.path.join(args.savedir, f"model_{epoch + 1}.pth"))
-
-            with open(os.path.join(args.savedir, f"acc_{epoch}.txt"),
-                      "w") as log:
-                log.write(
-                    "\nEpoch: %d\t Overall Acc (Tr): %.4f\t Overall Acc "
-                    "(Val): %.4f\t mIOU (Tr): %.4f\t mIOU (Val): %.4f"
-                    % (epoch, overall_acc_tr, overall_acc_val, miou_tr,
-                       miou_val))
-                log.write("\n")
-                log.write("Per Class Training Acc: " + str(per_class_acc_tr))
-                log.write("\n")
-                log.write("Per Class Validation Acc: "
-                          + str(per_class_acc_val))
-                log.write("\n")
-                log.write("Per Class Training mIOU: " + str(per_class_iou_tr))
-                log.write("\n")
-                log.write("Per Class Validation mIOU: "
-                          + str(per_class_iou_val))
-
-            logger.write("\n%d\t%.4f\t%.4f\t%.4f\t%.4f\t%.7f"
-                         % (epoch, loss_tr, loss_val, miou_tr, miou_val, lr))
-            logger.flush()
+            # the artifacts are rank 0's; every rank waits until they are
+            # written, so that none resumes from a half-written file
+            distributed.barrier(f"gseg_ckpt_pre_{epoch}")
+            if primary:
+                self._write_epoch(model, optimizer, epoch, lr, logger, (
+                    loss_tr, overall_acc_tr, per_class_acc_tr,
+                    per_class_iou_tr, miou_tr), (
+                    loss_val, overall_acc_val, per_class_acc_val,
+                    per_class_iou_val, miou_val))
+            distributed.barrier(f"gseg_ckpt_done_{epoch}")
             print("Epoch : " + str(epoch) + " Details")
             print("\nEpoch No.: %d\tTrain Loss = %.4f\tVal Loss = %.4f\t "
                   "mIOU(tr) = %.4f\t mIOU(val) = %.4f"
                   % (epoch, loss_tr, loss_val, miou_tr, miou_val))
         logger.close()
+        distributed.report(losses=self.losses)
         return self
 
+    def _write_epoch(self, model, optimizer, epoch: int, lr: float, logger,
+                     train, val) -> None:
+        args = self.args
+        (loss_tr, overall_acc_tr, per_class_acc_tr, per_class_iou_tr,
+         miou_tr) = train
+        (loss_val, overall_acc_val, per_class_acc_val, per_class_iou_val,
+         miou_val) = val
+        self._save_full_state(model, optimizer, epoch + 1)
+        state_dict = state_dict_cpu(model)
+        torch.save({
+            "epoch": epoch + 1,
+            "arch": repr(model),
+            "state_dict": state_dict,
+            "lossTr": float(loss_tr),
+            "lossVal": float(loss_val),
+            "iouTr": float(miou_tr),
+            "iouVal": float(miou_val),
+            "lr": lr,
+        }, os.path.join(args.savedir, "checkpoint.pth.tar"))
+        torch.save(state_dict,
+                   os.path.join(args.savedir, f"model_{epoch + 1}.pth"))
 
-def train_validate_segmentation(args, device=None) -> EspnetTrainer:
-    return EspnetTrainer(args, device).run()
+        with open(os.path.join(args.savedir, f"acc_{epoch}.txt"),
+                  "w") as log:
+            log.write(
+                "\nEpoch: %d\t Overall Acc (Tr): %.4f\t Overall Acc "
+                "(Val): %.4f\t mIOU (Tr): %.4f\t mIOU (Val): %.4f"
+                % (epoch, overall_acc_tr, overall_acc_val, miou_tr,
+                   miou_val))
+            log.write("\n")
+            log.write("Per Class Training Acc: " + str(per_class_acc_tr))
+            log.write("\n")
+            log.write("Per Class Validation Acc: "
+                      + str(per_class_acc_val))
+            log.write("\n")
+            log.write("Per Class Training mIOU: " + str(per_class_iou_tr))
+            log.write("\n")
+            log.write("Per Class Validation mIOU: "
+                      + str(per_class_iou_val))
+
+        logger.write("\n%d\t%.4f\t%.4f\t%.4f\t%.4f\t%.7f"
+                     % (epoch, loss_tr, loss_val, miou_tr, miou_val, lr))
+        logger.flush()
+
+
+def _rank_run(args, device):
+    trainer = EspnetTrainer(args, device).run()
+    trainer.class_weights = None   # a device tensor; the rest pickles
+    return trainer
+
+
+def train_validate_segmentation(args, device=None,
+                                devices=None) -> EspnetTrainer:
+    """Train; returns the :class:`EspnetTrainer`.  With ``--data_parallel``
+    or a coordinator, on the ranks of ``parallel/distributed.py`` (on
+    ``devices``, by default the visible cards or, under the CPU, the CPU),
+    returning this process's first rank's trainer without its class
+    weights."""
+    device = device if device is not None else getattr(args, "device",
+                                                       "cuda")
+    plan = distributed.init_distributed(
+        getattr(args, "coordinator", None),
+        getattr(args, "num_processes", None),
+        getattr(args, "process_id", None),
+        getattr(args, "data_parallel", 0), device, devices)
+    if plan is None or distributed.joined():
+        return EspnetTrainer(args, device).run()
+    return distributed.launch(plan, _rank_run, args, device)

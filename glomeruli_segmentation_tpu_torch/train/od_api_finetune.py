@@ -16,6 +16,10 @@ statistics.  Float32 end to end with both TF32 switches off, Adam, and
 The result is ``od_api_detector.ckpt.pth`` in the JAX package's layout
 (``od_api_params``, ``num_classes``, ``od_config``), written with
 ``torch.save``; both packages' detect commands load it.
+
+``data_parallel`` N splits the window batch over N ranks as the native
+driver does (:mod:`.detector_driver`); with BN folded and frozen, the
+ranks only sum their gradients and losses.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ import torch
 
 from .. import resolve_device
 from ..convert.pb_import import load_od_api_checkpoint  # noqa: F401
+from ..parallel import distributed
 from .detector_driver import (DetectorTrainConfig, SlideWindowSampler,
-                              refuse_data_parallel, run_steps)
+                              plan_windows, run_steps)
 
 OD_API_CKPT_NAME = "od_api_detector.ckpt.pth"
 
@@ -46,19 +51,30 @@ def finetune_od_api(staining: str, data_dir: str, target_list: str,
                     num_classes: Optional[int] = None,
                     od_config_overrides: Optional[dict] = None,
                     log_every: int = 50, data_parallel: int = 0,
-                    device="cuda") -> str:
+                    device="cuda", devices=None) -> str:
     """Fine-tune OD-API weights on annotated slides; returns the saved
     checkpoint path.  Initial weights come from ``pb_path`` (a downloaded
     frozen graph), ``consts`` (pre-extracted constants), or ``params``
     (an already-assembled tree + ``num_classes``).  ``device`` is ``cuda``
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU; ``data_parallel`` trains on that
+    many ranks (on ``devices``)."""
+    config = config or DetectorTrainConfig()
+    plan = plan_windows(data_parallel, config.batch_size, device, devices)
+    return distributed.run(plan, _finetune, staining, data_dir, target_list,
+                           output_dir, config, pb_path, consts, params,
+                           num_classes, od_config_overrides, log_every,
+                           device)
+
+
+def _finetune(staining, data_dir, target_list, output_dir, config, pb_path,
+              consts, params, num_classes, od_config_overrides, log_every,
+              device) -> str:
     from ..convert.pb_import import (assemble_od_api_params,
                                      load_od_api_detector_params)
     from ..models.od_api_frcnn import (ODAPIConfig, ODAPIFasterRCNN,
                                        build_anchors)
 
-    refuse_data_parallel(data_parallel)
-    dev = resolve_device(device)
+    dev = distributed.rank_device() or resolve_device(device)
     if params is not None:
         assert num_classes is not None, "params requires num_classes"
     elif consts is not None:
@@ -66,7 +82,6 @@ def finetune_od_api(staining: str, data_dir: str, target_list: str,
     else:
         params, num_classes = load_od_api_detector_params(pb_path)
 
-    config = config or DetectorTrainConfig()
     overrides = dict(od_config_overrides or {})
     # a training step differentiates through all max_proposals ROI crops
     # at once; the inference default (300) is needlessly wide for loss
@@ -88,8 +103,10 @@ def finetune_od_api(staining: str, data_dir: str, target_list: str,
     run_steps(sampler, rng, config.steps, model, optimizer, od_api_forward,
               anchors, dev, False, log_every)
 
-    os.makedirs(output_dir, exist_ok=True)
     ckpt_path = os.path.join(output_dir, OD_API_CKPT_NAME)
+    if not distributed.is_primary():
+        return ckpt_path
+    os.makedirs(output_dir, exist_ok=True)
 
     def tensors(tree):
         return {k: tensors(v) if isinstance(v, dict)

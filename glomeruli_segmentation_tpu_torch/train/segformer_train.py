@@ -18,7 +18,8 @@ the port's plain ``nn.Module`` and autograd.  Replicated recipe:
   micro-batch gradients, one optimizer and schedule step per k; BN
   statistics update on every micro-batch;
 - the loss: the f32 logits upsampled to label size (``upsample_logits``,
-  the JAX blend) and cross entropy ignoring label 255 (``_ce_ignore``);
+  the JAX blend) and cross entropy ignoring label 255, the summed
+  entropy over ``max(count, 1)`` (``_ce_ignore_sums``);
 - evaluation every save interval and on the last epoch with mean-IoU
   (ignore_index 255); ``checkpoint-{step}/flax_model.pth`` (``step``
   counts micro-batches), keeping the newest and the best
@@ -27,8 +28,18 @@ the port's plain ``nn.Module`` and autograd.  Replicated recipe:
   of ``gseg-segformer-test`` reads.
 
 Float32 steps run with both TF32 switches off from the forward through
-the optimizer step; ``--bf16`` autocasts the forward only.  The multi-card
-flags raise, as in :mod:`.espnet_train`.
+the optimizer step; ``--bf16`` autocasts the forward only.
+
+``--data_parallel`` and the coordinator flags train on the ranks of
+``parallel/distributed.py``, as the JAX trainer trains on its mesh: a
+ragged batch is padded to a multiple of the ranks, images by repeating the
+last one and labels with 255, so the padded rows stay out of the loss
+(the head's BatchNorm statistics, global over the ranks, still see them);
+the loss's numerator and pixel count are sums over the ranks, with
+``max(count, 1)`` on the global count; the gradients are summed over the
+ranks at each optimizer step; evaluation gathers every rank's predictions,
+so that ``mean_iou`` sees the whole batch, as the JAX trainer's replicated
+eval output gives it.  Rank 0 writes ``log.txt`` and the checkpoints.
 """
 from __future__ import annotations
 
@@ -52,23 +63,39 @@ from ..models.segformer import (
     config_from_state_dict,
     upsample_logits,
 )
+from ..parallel import distributed
 from .batch_norm import use_flax_batch_norm
-from .espnet_train import autocast, refuse_unported, upload
+from .espnet_train import autocast, upload
 
 # optax.adamw's defaults
 ADAMW_BETAS, ADAMW_EPS, ADAMW_WEIGHT_DECAY = (0.9, 0.999), 1e-8, 1e-4
 
 
-def _ce_ignore(logits_up: torch.Tensor, labels: torch.Tensor,
-               ignore_index: int = 255) -> torch.Tensor:
-    """Cross entropy of (N, H, W, C) logits against (N, H, W) labels, mean
-    over the pixels whose label is not ``ignore_index``, in float32."""
+def _ce_ignore_sums(logits_up: torch.Tensor, labels: torch.Tensor,
+                    ignore_index: int = 255):
+    """The summed float32 cross entropy of (N, H, W, C) logits against (N,
+    H, W) labels over the pixels whose label is not ``ignore_index``, and
+    the count of those pixels."""
     logp = F.log_softmax(logits_up.float(), dim=-1)
     labels = labels.long()
     safe = torch.where(labels == ignore_index, 0, labels)
     nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
     mask = labels != ignore_index
-    return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return (nll * mask).sum(), mask.sum()
+
+
+def pad_batch(x: np.ndarray, y: Optional[np.ndarray]):
+    """Pad a ragged batch to a multiple of the data axis (JAX
+    ``segformer_train._pad_batch``): images repeat the last one, labels
+    are 255.  Returns (x, y, the number of real rows)."""
+    n = x.shape[0]
+    pad = distributed.pad_rows(n)
+    if pad:
+        x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+        if y is not None:
+            y = np.concatenate(
+                [y, np.full((pad,) + y.shape[1:], 255, y.dtype)])
+    return x, y, n
 
 
 def warmup_lr(lr: float, warmup: int, count: int) -> float:
@@ -82,11 +109,13 @@ def build_steps(model: torch.nn.Module, optimizer, lr: float, warmup: int,
     """(train_step, eval_step) over ``model`` on its device.
 
     ``train_step(x, y)`` takes one (N, H, W, 3) float batch and its (N, H,
-    W) labels on the device, runs the forward in training mode, the f32
-    upsample and loss, and the backward; every ``accumulation_steps``-th
-    call it steps AdamW at the schedule's lr on the mean of the gradients
-    and clears them.  It returns the micro-batch's loss on the device.
-    ``eval_step(x)`` returns the evaluation-mode logits (N, h, w, C)."""
+    W) labels on the device (in a data axis, this rank's rows), runs the
+    forward in training mode, the f32 upsample and loss, and the backward;
+    every ``accumulation_steps``-th call it sums the gradients over the
+    ranks and steps AdamW at the schedule's lr on the mean of the
+    gradients and clears them.  It returns the micro-batch's loss (of the
+    global batch) on the device.  ``eval_step(x)`` returns the
+    evaluation-mode logits (N, h, w, C)."""
     k = max(1, int(accumulation_steps))
     device = next(model.parameters()).device
     state = {"micro": 0, "updates": 0}
@@ -99,16 +128,18 @@ def build_steps(model: torch.nn.Module, optimizer, lr: float, warmup: int,
             with autocast(device, bf16):
                 logits = model(x)
             up = upsample_logits(logits.float(), y.shape[1], y.shape[2])
-            loss = _ce_ignore(up, y)
-            (loss / k if k > 1 else loss).backward()
+            share, loss = distributed.global_ratio(*_ce_ignore_sums(up, y),
+                                                   floor=1)
+            (share / k if k > 1 else share).backward()
             state["micro"] += 1
             if state["micro"] % k == 0:
+                distributed.reduce_gradients(model)
                 for group in optimizer.param_groups:
                     group["lr"] = warmup_lr(lr, warmup, state["updates"])
                 optimizer.step()
                 optimizer.zero_grad(set_to_none=True)
                 state["updates"] += 1
-        return loss.detach()
+        return loss
 
     @torch.no_grad()
     def eval_step(x: torch.Tensor) -> torch.Tensor:
@@ -172,18 +203,33 @@ def build_model(args) -> Segformer:
     return model
 
 
-def train_segformer(args, device=None) -> str:
-    """Run fine-tuning; returns the output directory."""
+def train_segformer(args, device=None, devices=None) -> str:
+    """Run fine-tuning; returns the output directory.  With
+    ``--data_parallel`` or a coordinator, on the ranks of
+    ``parallel/distributed.py`` (on ``devices``, by default the visible
+    cards or, under the CPU, the CPU)."""
+    device = device if device is not None else getattr(args, "device",
+                                                       "cuda")
+    plan = distributed.init_distributed(
+        getattr(args, "coordinator", None),
+        getattr(args, "num_processes", None),
+        getattr(args, "process_id", None),
+        getattr(args, "data_parallel", 0), device, devices)
+    return distributed.run(plan, _train, args, device)
+
+
+def _train(args, device) -> str:
     from ..convert.segformer_import import save_flax_checkpoint
     from ..data.segformer_dataset import ResizedGlomerularDataset
 
-    refuse_unported(args)
-    dev = resolve_device(device if device is not None
-                         else getattr(args, "device", "cuda"))
+    dev = distributed.rank_device() or resolve_device(device)
+    primary = distributed.is_primary()
     out_dir = os.path.join(args.model_root, args.site,
                            f"{args.output_dir}/fold{args.fold}")
-    os.makedirs(out_dir, exist_ok=True)
-    log_f = open(os.path.join(out_dir, "log.txt"), "a")
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
+    log_f = open(os.path.join(out_dir, "log.txt"), "a") if primary \
+        else open(os.devnull, "w")
 
     data_source = os.path.join(args.data_root, args.site, args.data_date)
     train_tf = T.Compose([
@@ -232,18 +278,24 @@ def train_segformer(args, device=None) -> str:
     best_dir: Optional[str] = None
     prev_dir: Optional[str] = None
     step = 0
+    losses = []
     for epoch in range(args.max_epoch):
         for x, y in train_loader:
-            loss = train_step(upload(x, dev), upload(y, dev))
+            x, y, _ = pad_batch(x, y)
+            loss = train_step(upload(distributed.shard_rows(x), dev),
+                              upload(distributed.shard_rows(y), dev))
+            losses.append(loss)
             step += 1
         log_f.write(json.dumps({"loss": float(loss),
                                 "epoch": epoch + 1}) + "\n")
         if (epoch + 1) % args.save_interval == 0 or epoch + 1 == args.max_epoch:
             preds, gts = [], []
             for x, y in val_loader:
-                logits = eval_step(upload(x, dev))
+                xp, _, n_real = pad_batch(x, None)
+                logits = eval_step(upload(distributed.shard_rows(xp), dev))
                 up = upsample_logits(logits.float(), y.shape[1], y.shape[2])
-                preds.extend(up.argmax(-1).cpu().numpy())
+                pred = distributed.gather_rows(up.argmax(-1))
+                preds.extend(pred.cpu().numpy()[:n_real])
                 gts.extend(y)
             if preds:
                 metrics = mean_iou(preds, gts, args.num_labels,
@@ -254,6 +306,8 @@ def train_segformer(args, device=None) -> str:
             log_f.write(json.dumps(
                 {"eval_mean_iou": eval_iou, "epoch": epoch + 1}) + "\n")
             log_f.flush()
+            if not primary:
+                continue
             ckpt_dir = os.path.join(out_dir, f"checkpoint-{step}")
             os.makedirs(ckpt_dir, exist_ok=True)
             save_flax_checkpoint(model.state_dict(),
@@ -270,4 +324,5 @@ def train_segformer(args, device=None) -> str:
                 shutil.rmtree(prev_dir)
             prev_dir = ckpt_dir
     log_f.close()
+    distributed.report(losses=[float(v) for v in losses])
     return out_dir

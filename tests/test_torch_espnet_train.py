@@ -192,9 +192,13 @@ def test_weight_decay_flag_plumbs_through():
 
 def test_parsers_match_jax_and_refuse_unported():
     """Every JAX flag under the same name and default, plus --device
-    (default cuda); the multi-card flags raise naming themselves."""
+    (default cuda); the multi-card flags parse as the JAX parsers parse
+    them, and ``parallel/distributed.py`` derives their ranks under
+    ``--device cpu``: (world, local ranks, devices, backend), None for the
+    one-device run, or the error a lone --num_processes raises."""
     from glomeruli_segmentation_tpu.cli import segformer_train as jax_seg
     from glomeruli_segmentation_tpu.cli import train as jax_cli
+    from glomeruli_segmentation_tpu_torch.parallel import distributed
 
     base = ["--site", "01_Todai", "--data_root", "d", "--data_date", "x",
             "--model_root", "m"]
@@ -204,12 +208,28 @@ def test_parsers_match_jax_and_refuse_unported():
         got = vars(port_mod.build_parser().parse_args(argv))
         assert got.pop("device") == "cuda"
         assert got == want
-    for flag in (["--data_parallel", "2"], ["--coordinator", "h:1"],
-                 ["--num_processes", "2"], ["--process_id", "1"]):
-        with pytest.raises(SystemExit, match="not ported: " + flag[0]):
-            port_cli.main(flag + ["--device", "cpu"])
-        with pytest.raises(SystemExit, match="not ported: " + flag[0]):
-            port_seg_cli.main(base + flag + ["--device", "cpu"])
+    cpu = torch.device("cpu")
+    for flag, plan in (
+            (["--data_parallel", "2"], (2, 2, (cpu, cpu), "gloo")),
+            (["--coordinator", "h:1"], (1, 1, (cpu,), "gloo")),
+            (["--num_processes", "2"], "needs --coordinator"),
+            (["--process_id", "1"], None)):
+        for jax_mod, port_mod, argv in ((jax_cli, port_cli, flag),
+                                        (jax_seg, port_seg_cli,
+                                         base + flag)):
+            args = port_mod.build_parser().parse_args(argv + ["--device",
+                                                              "cpu"])
+            want = vars(jax_mod.build_parser().parse_args(argv))
+            assert vars(args).items() >= want.items()
+            ranks = (args.coordinator, args.num_processes, args.process_id,
+                     args.data_parallel, args.device)
+            if isinstance(plan, str):
+                with pytest.raises(ValueError, match=plan):
+                    distributed.init_distributed(*ranks)
+                continue
+            got = distributed.init_distributed(*ranks)
+            assert (got if got is None else (
+                got.world, got.local, got.devices, got.backend)) == plan
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):

@@ -51,8 +51,10 @@ def test_port_and_chip_smoke_import_without_jax():
     # train/segformer_train, cli/train, cli/create_dataset_txt,
     # cli/segformer_train) and the detector training slice's
     # (train/detector_train, train/detector_driver, train/od_api_finetune,
-    # cli/train_detector)
-    assert count >= 91, proc.stdout
+    # cli/train_detector) and the inference surface's (parallel,
+    # parallel/mesh, parallel/fold_parallel, parallel/spatial) and the
+    # data-parallel trainers' (parallel/distributed)
+    assert count >= 96, proc.stdout
 
 
 def test_native_reader_builds_from_the_ports_own_files():

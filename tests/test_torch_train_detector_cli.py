@@ -7,6 +7,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from pb_graph_writer import write_graph
 from test_od_api_import import build_od_api_consts
@@ -52,9 +53,23 @@ def test_parser_adds_only_device():
 @pytest.mark.parametrize("extra", [[], ["--finetune_pb", "graph.pb"]],
                          ids=["native", "finetune_pb"])
 def test_data_parallel_raises_naming_itself(extra):
-    with pytest.raises(SystemExit, match="--data_parallel"):
-        port_cli.main(REQUIRED + ["--data_parallel", "2", "--device", "cpu"]
-                      + extra)
+    """``--data_parallel`` parses as the JAX parser parses it, and both
+    trainers plan its ranks under ``--device cpu``: two gloo ranks on the
+    CPU for a batch of 4, and the JAX driver's error where the batch does
+    not split."""
+    from glomeruli_segmentation_tpu_torch.train import detector_driver
+
+    argv = REQUIRED + ["--data_parallel", "2"] + extra
+    args = port_cli.build_parser().parse_args(argv + ["--device", "cpu"])
+    assert vars(args).items() >= vars(
+        jax_cli.build_parser().parse_args(argv)).items()
+    plan = detector_driver.plan_windows(args.data_parallel, args.batch_size,
+                                        args.device)
+    assert (plan.world, plan.local, plan.backend) == (2, 2, "gloo")
+    assert plan.devices == (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError, match="batch_size 3 must be a multiple "
+                                         "of the data-axis size 2"):
+        port_cli.main(argv + ["--batch_size", "3", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("extra", [[], ["--finetune_pb", "graph.pb"]],
