@@ -208,7 +208,18 @@
     one device and two ranks and the all-reduce's share of a step; then
     ``gseg-segformer-train --coordinator --num_processes 1`` launching its
     own rank on ``nccl``;
-22. prints one JSON line of kernel results (K3 once per detector, each with
+22. runs ``gseg-e2e`` through ``build_pipeline`` at the CLI's defaults
+    (the e2e detector, the packed ensemble at crop batch 32 in bf16 with
+    K1 on level 3, labelme JSONs; then ``--segformer_checkpoint`` mit-b0
+    with ``--no_json``) on one small slide (one window of the e2e
+    slide's level 3), each family as is and then with a zero-height and a
+    zero-width merged box injected by wrapping the merge step, the counts
+    set to 0 before and read after each run: the slide finishes, both
+    boxes are counted (``FusedEndToEnd.degenerate_boxes``), the merged CSV
+    is the first run's plus their rows, every per-crop file and the
+    overlay are byte-identical, and K1 (ESPNet) and K3 launch as in the
+    first run;
+23. prints one JSON line of kernel results (K3 once per detector, each with
     its launches in the e2e run and in the server run, the OD-API one also
     in the SegFormer e2e run and in ``gseg-selftest``, and the selftest
     window's two cases among its ``cases``; K1 and K2 with their
@@ -218,15 +229,17 @@
     phase and its training-shape case among its ``cases``; K1, K2 and the
     OD-API K3 with their launches in the inference-surface runs, K3 also
     under ``--data_parallel 2``; the ResNet K3 with its launches in the
-    distributed-training ranks and one shard's case) and, last, one JSON
-    status line.
+    distributed-training ranks and one shard's case; K1, K2 and the
+    OD-API K3 with their launches in the degenerate-boxes runs) and, last,
+    one JSON status line.
 
 Any failed check raises, so the exit code is non-zero and the status line
 is not printed.  It needs a CUDA card and exits non-zero without one.
 ``python3 chip_smoke.py --only detector_training`` builds and runs phase
 19 alone (on a tree it writes), ``--only inference_surface`` phase 20
 (on the e2e slide, folds and detector it writes), ``--only
-distributed_training`` phase 21, without the result lines.
+distributed_training`` phase 21, ``--only degenerate_boxes`` phase 22 (on
+the folds and detector it writes), without the result lines.
 """
 from __future__ import annotations
 
@@ -403,10 +416,16 @@ E2E_COMPRESSION = "jpeg"
 # random_od_api_consts seed of the e2e detector: its scores decide how many
 # boxes pass the CLI's thresholds (conf 0.2, merge 0.9) and how large they
 # are.  Seed 0 merges 134 boxes a slide, none degenerate (e2e_seeds.py);
-# seed 4's boxes are smaller, but some have zero height, which the
-# segmenter of both packages cannot crop
+# seed 4's boxes are smaller, but some have zero height: the port keeps
+# their CSV rows and segments the rest (the degenerate-boxes phase injects
+# such boxes), where the JAX package's segmenter cannot crop them
 
 E2E_DETECTOR_SEED = 0
+# the degenerate-boxes phase: the top-left window of the e2e slide's level
+# 3, written at 8x (8832 x 8832 px at level 0), one job.  Two windows
+# (1104 x 2208) merged 39 boxes and took the phase 94.8 s on one H100 80GB
+# HBM3 at 700 W (PERF.md)
+DEG_LEVEL3_HW, DEG_PATIENT = (1104, 1104), "DEG-1"
 # the staged segment phase: a GT slide of 12288 x 9216 px at the e2e
 # phase's 0.2265 um/px, 40x, with 32 glomeruli of radius 40 to 65 px at
 # level 3 (320 to 520 px at level 0) on a jittered 4 x 8 grid, so that no
@@ -4813,13 +4832,171 @@ def distributed_training_phase(name_power: str, device: str = "cuda"
             "proposals_equal": equal, "nccl_rel": nccl_rel}
 
 
+# ---------------- boxes without pixels ----------------
+def degenerate_boxes(box) -> list:
+    """Two merged boxes without pixels beside ``box``: zero height, then
+    zero width, with the same confidence."""
+    zero_h, zero_w = list(box), list(box)
+    zero_h[3] = zero_h[1]
+    zero_w[2] = zero_w[0]
+    return [zero_h, zero_w]
+
+
+def degenerate_boxes_phase(params, ckpt_dir: Path, name_power: str) -> dict:
+    """``gseg-e2e`` through ``build_pipeline`` at the CLI's defaults (the
+    OD-API detector with ``params`` and the host TF1 resize, the packed
+    ensemble at crop batch 32 in bf16 with K1 on level 3, labelme JSONs;
+    then ``--segformer_checkpoint`` mit-b0 with ``--no_json``) on one
+    small slide (``DEG_LEVEL3_HW`` of the e2e slide's level 3, written at
+    8x), each family run as is and then with a zero-height box (second)
+    and a zero-width one (last) added to the merged list by wrapping the
+    merge step, the counts set to 0 before and read after each run.  The
+    slide must finish, both boxes be counted in
+    ``FusedEndToEnd.degenerate_boxes``, the merged CSV be the first run's
+    plus their two rows, and every per-crop file and the overlay equal the
+    first run's byte for byte.  Returns the launches of each run."""
+    root = WORK / "degenerate"
+    shutil.rmtree(root, ignore_errors=True)
+    h3, w3 = DEG_LEVEL3_HW
+    level3 = pyramid_slide(seed=1).level3[:h3, :w3]
+    path = root / "data" / "DEG.tiff"
+    path.parent.mkdir(parents=True)
+    t0 = time.perf_counter()
+    write_pyramidal_tiff(str(path), np.repeat(np.repeat(level3, 8, axis=0),
+                                              8, axis=1),
+                         mpp=DET_MPP, objective_power=40.0,
+                         compression=E2E_COMPRESSION)
+    write_s = time.perf_counter() - t0
+    sd = random_segformer_state_dict(SEGFORMER_CONFIGS["mit-b0"],
+                                     SEGFORMER_SEED,
+                                     SEGFORMER_CLASSIFIER_SCALE)
+    (root / "b0").mkdir()
+    save_flax_checkpoint(sd, str(root / "b0" / "flax_model.pth"),
+                         SEGFORMER_CONFIGS["mit-b0"].num_labels)
+    backend = ODAPIDetectorBackend(params=params, num_classes=1,
+                                   batch_size=DET_BATCH)
+    base_argv = ["--model", str(root), "--target_list", "unused",
+                 "--data_dir", str(root / "data")]
+    # the SegFormer family without its label PNGs: its producer resizes
+    # every crop on both paths, and the host upsample of the PNG path would
+    # double the phase (the CPU tests hold the PNGs)
+    families = {
+        "espnet": ["--segmentation_weights_dir", str(ckpt_dir)],
+        "segformer": ["--segformer_checkpoint", str(root / "b0"),
+                      "--no_json"],
+    }
+    pid = DEG_PATIENT
+    runs = {}
+    for family, extra in families.items():
+        args = build_parser().parse_args(base_argv + extra)
+        json_dir = None if args.no_json else "json"
+        pipe = build_pipeline(args, backend)
+        if family == "espnet":
+            ens = pipe.segmenter.ensemble
+            check(ens.engine == "packed" and ens.fuse_level3
+                  and ens.config.batch_size == 32
+                  and ens.config.compute_dtype == "bfloat16",
+                  "degenerate boxes: the CLI defaults")
+        merge_boxes, merged = pipe.merge_boxes, []
+
+        def injected(*a):
+            out = list(merge_boxes(*a))
+            check(len(out) >= 1, f"degenerate boxes: {len(out)} merged "
+                  f"boxes on the slide; make DEG_LEVEL3_HW larger")
+            zero_h, zero_w = degenerate_boxes(out[0])
+            return out[:1] + [zero_h] + out[1:] + [zero_w]
+
+        for name, merge in (("as is", merge_boxes), ("injected", injected)):
+            pipe.merge_boxes = (
+                lambda *a, m=merge: merged.append(m(*a)) or merged[-1])
+            out = root / family / name.replace(" ", "_")
+            FusedEndToEnd.prepare_output(str(out), "OPT_PAS")
+            results = []
+            torch.cuda.synchronize()
+            esp_block_fused.launches = esp_block_padded.launches = 0
+            nms.launches = 0
+            t0 = time.perf_counter()
+            ok = pipe.run_slides(
+                [(str(path), pid)], str(out),
+                json_dir=json_dir and str(out / json_dir),
+                pipeline=resolve_slide_pipeline(args),
+                on_result=lambda *r: results.append(r))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for _, _, error, _ in results:
+                if error is not None:
+                    raise RuntimeError(f"degenerate boxes {family} {name}: "
+                                       f"the slide failed") from error
+            check(ok == 1, f"degenerate boxes {family} {name}: {ok} slides")
+            files = {str(p_.relative_to(out)): p_.read_bytes()
+                     for p_ in sorted(out.rglob("*"))
+                     if p_.is_file() and not p_.name.endswith("_log.csv")}
+            runs[(family, name)] = {
+                "wall": wall, "files": files, "merged": merged[-1],
+                "counted": pipe.degenerate_boxes.get(pid),
+                "launches": (esp_block_fused.launches,
+                             esp_block_padded.launches, nms.launches),
+                "log": log_rows(out)}
+        base, got = runs[(family, "as is")], runs[(family, "injected")]
+        n = len(base["merged"])
+        check(base["counted"] == 0 and got["counted"] == 2,
+              f"degenerate boxes {family}: counted {base['counted']} and "
+              f"{got['counted']}, want 0 and 2")
+        csv = "OPT_PAS_GlomusMergedList_.csv"
+        extra_rows = [",{},\"{}\",{},{},{},{},{}\n".format(
+            pid, path.name, *(int(v) for v in b[:4]), b[4])
+            for b in (got["merged"][1], got["merged"][-1])]
+        got_rows = got["files"][csv].decode().splitlines(True)
+        check(all(r in got_rows for r in extra_rows),
+              f"degenerate boxes {family}: the two rows not in the CSV")
+        for r in extra_rows:
+            got_rows.remove(r)
+        check("".join(got_rows).encode() == base["files"][csv],
+              f"degenerate boxes {family}: the other CSV rows differ")
+        crops = [k for k in base["files"] if k.startswith("json/")]
+        check(len(crops) == (0 if json_dir is None else n)
+              and all(k.endswith(".json") for k in crops),
+              f"degenerate boxes {family}: {len(crops)} per-crop files for "
+              f"{n} boxes")
+        others = {k: v for k, v in got["files"].items() if k != csv}
+        check(others == {k: v for k, v in base["files"].items()
+                         if k != csv},
+              f"degenerate boxes {family}: per-crop files or overlay differ "
+              f"from the slide's without the two boxes")
+        want_k1 = 40 * math.ceil(n / 32) if family == "espnet" else 0
+        for r in (base, got):
+            k1_n, k2_n, k3_n = r["launches"]
+            check(k1_n == want_k1 and k2_n == 0 and k3_n > 0
+                  and r["launches"] == base["launches"],
+                  f"degenerate boxes {family}: (K1, K2, K3) launches "
+                  f"{r['launches']}, want ({want_k1}, 0, K3 > 0) in both "
+                  f"runs")
+        sides = [(int(b[2]) - int(b[0]), int(b[3]) - int(b[1]))
+                 for b in (got["merged"][1], got["merged"][-1])]
+        mode = "--no_json" if json_dir is None else "labelme JSONs"
+        print(f"degenerate boxes, gseg-e2e {family} ({mode}; slide "
+              f"{w3 * 8}x{h3 * 8} written in {write_s:.2f} s): {n} "
+              f"merged boxes, then {n} + 2 with boxes of sides (w, h) "
+              f"{sides} injected second and last; the slide finished, "
+              f"degenerate_boxes {got['counted']}; the merged CSV the first "
+              f"run's plus their 2 rows; {len(crops)} per-crop files and "
+              f"the overlay byte-identical; (K1, K2, K3) launches "
+              f"{base['launches']} and {got['launches']}; s/slide (timing "
+              f"log) {base['log'][0][1]:.3f} and {got['log'][0][1]:.3f}, "
+              f"wall {base['wall']:.3f} and {got['wall']:.3f} | "
+              f"{name_power}", flush=True)
+    return {"launches": {f"{family}, {name}": r["launches"]
+                         for (family, name), r in runs.items()}}
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["detector_training",
                                            "inference_surface",
-                                           "distributed_training"],
+                                           "distributed_training",
+                                           "degenerate_boxes"],
                         help="build, then run this phase alone and print "
                              "its lines, without the result lines")
     only = parser.parse_args(argv).only
@@ -4866,6 +5043,11 @@ def main(argv=None) -> int:
             detector_training_phase(name_power)
         elif only == "distributed_training":
             distributed_training_phase(name_power)
+        elif only == "degenerate_boxes":
+            write_checkpoints(WORK / "folds", 5, 2, 8)
+            degenerate_boxes_phase(ODAPIDetectorBackend(
+                consts=random_od_api_consts(E2E_DETECTOR_SEED),
+                batch_size=DET_BATCH).params, WORK / "folds", name_power)
         else:
             # the e2e phase's slide, folds and detector, without its runs
             path = WORK / "e2e" / "data" / "E2E.tiff"
@@ -5089,6 +5271,9 @@ def main(argv=None) -> int:
     phase_done("inference surface")
     dist = distributed_training_phase(name_power)
     phase_done("distributed training")
+    degenerate = degenerate_boxes_phase(e2e["params"], WORK / "folds",
+                                        name_power)
+    phase_done("degenerate boxes")
     check(wsi.python_fallbacks == 0 and native_reader.unavailable_reason
           is None, f"{wsi.python_fallbacks} slides opened with the Python "
           f"reader: {native_reader.unavailable_reason}")
@@ -5141,6 +5326,8 @@ def main(argv=None) -> int:
                       {k: v[0] for k, v in surface["launches"].items()},
                       **{"packed engine, data mesh of 2, one batch":
                          surface["segment_mesh_k1"]}),
+                  degenerate_boxes_launches={
+                      k: v[0] for k, v in degenerate["launches"].items()},
                   staged_segment_f32={k: staged["k1"][k] for k in (
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by")}),
@@ -5152,7 +5339,9 @@ def main(argv=None) -> int:
                       k: v[1] for k, v in surface["launches"].items()},
                   e2e_launches=e2e["launches"][1],
                   serve_launches=served["launches"][1],
-                  segformer_e2e_launches=segformer_e2e["launches"][1]),
+                  segformer_e2e_launches=segformer_e2e["launches"][1],
+                  degenerate_boxes_launches={
+                      k: v[1] for k, v in degenerate["launches"].items()}),
         dict(nms_entry("ResNet-50-C4 detector",
                        {**k3, "native training rpn":
                         det_training["k3"]["native training rpn"],
@@ -5178,7 +5367,9 @@ def main(argv=None) -> int:
              inference_surface_launches=dict(
                  {k: v[2] for k, v in surface["launches"].items()},
                  **{"gseg-detect --data_parallel 2":
-                    surface["detect_mesh_k3"]})),
+                    surface["detect_mesh_k3"]}),
+             degenerate_boxes_launches={
+                 k: v[2] for k, v in degenerate["launches"].items()}),
     ]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -169,16 +169,19 @@ def resolve_mesh_policy(args, n_devices: int) -> None:
         args.data_parallel = data
         print(f"--mesh auto: {n} devices -> data parallel x {data}")
     # the detector's window batches ride their own data mesh, sized to
-    # divide ITS batch
-    det_dp = auto_data_parallel(args.batch_size, n_devices=n)
-    if det_dp:
-        args.detector_data_parallel = det_dp
+    # divide ITS batch: 0 (one device) when no size above 1 divides it,
+    # never the segmenter's data axis
+    args.detector_data_parallel = auto_data_parallel(args.batch_size,
+                                                     n_devices=n)
 
 
 def detector_data_parallel(args) -> int:
-    """The detector's data-axis size: the shared --data_parallel flag,
-    unless --mesh auto resolved a detector-specific one."""
-    return getattr(args, "detector_data_parallel", 0) or args.data_parallel
+    """The detector's data-axis size: the one ``--mesh auto`` resolved for
+    the detector's batch when it ran (0 included), else the shared
+    --data_parallel flag."""
+    if hasattr(args, "detector_data_parallel"):
+        return args.detector_data_parallel
+    return args.data_parallel
 
 
 def resolve_slide_pipeline(args) -> bool:

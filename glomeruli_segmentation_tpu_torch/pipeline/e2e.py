@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import datetime
 import json
+import logging
 import os
 import tempfile
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -33,9 +34,11 @@ from .. import wsi
 from ..palette import ESPNET_PALETTE, colorize, relabel_to_cityscapes
 from .detect import DetectorBackend, GlomusDetector
 from .fused import EnsembleSegmenter, FusedSlideSegmenter
-from .merge import BoxMerger
+from .merge import BoxMerger, has_pixels
 from .seg_data import MAGNIFICATION
 from .segment import build_labelme_doc
+
+log = logging.getLogger(__name__)
 
 
 class _CollectingDetector(GlomusDetector):
@@ -96,6 +99,9 @@ class FusedEndToEnd:
         self.detect_conf = detect_conf
         self.merge_conf = merge_conf
         self.merge_overlap = merge_overlap
+        # patient -> merged boxes of zero width or height that the
+        # segmenter left out (:func:`.merge.has_pixels`), per segmented slide
+        self.degenerate_boxes: Dict[str, int] = {}
 
     def detect_slide(self, slide, data_dir: str, patient_id: str,
                      file_name: str) -> List[List[float]]:
@@ -398,7 +404,15 @@ class FusedEndToEnd:
                  json_dir: Optional[str], progress: bool) -> np.ndarray:
         """Stage 2: the fused device segmentation (+ per-crop artifacts,
         which segment_slide's own one-deep pipeline overlaps with device
-        compute)."""
+        compute).  Merged boxes of zero width or height keep their CSV row
+        but are not segmented and get no per-crop artifact; their count
+        goes to ``degenerate_boxes[patient_id]`` and to the log."""
+        skipped = sum(not has_pixels(box) for box in merged)
+        self.degenerate_boxes[patient_id] = skipped
+        if skipped:
+            log.warning("%s: %d merged box(es) of zero width or height kept "
+                        "in the merged CSV, not segmented", patient_id,
+                        skipped)
         on_crop = None
         if json_dir is not None:
             crop_dir = os.path.join(json_dir, patient_id)

@@ -57,6 +57,7 @@ from ..ops.preprocess import (FLAT_OFFSET_LIMIT, copy_pixels,
 from ..parallel.fold_parallel import (FoldParallelEnsemble, stack_states,
                                       unstack)
 from ..parallel.mesh import Replicas, upload
+from .merge import has_pixels
 
 log = logging.getLogger(__name__)
 
@@ -470,6 +471,20 @@ class EnsembleSegmenter:
         return self._run(self._gather_argmax, resized, ys, xs)
 
 
+def crop_boxes(detections) -> List[List[int]]:
+    """The integer level-0 boxes ``(x1, y1, x2, y2)`` of ``detections`` that
+    hold pixels (:func:`.merge.has_pixels`), in order.
+
+    The rule of both segmenters: a merged box of zero (or negative) width
+    or height after the integer cast is not read, segmented, pasted or
+    given a per-crop artifact.  Its merged-CSV row stays, because the
+    detector reported it.  Leaving it out before the batches are cut keeps
+    every other crop's batch, and so its bytes, as on the slide without
+    it."""
+    boxes = [[int(v) for v in det[:4]] for det in detections]
+    return [b for b in boxes if has_pixels(b)]
+
+
 class FusedSlideSegmenter:
     """Whole slide: detections -> /8 prediction canvas.
 
@@ -511,13 +526,14 @@ class FusedSlideSegmenter:
                       progress: bool = False, on_crop=None) -> np.ndarray:
         """``on_crop(box, class_map)`` is invoked per crop with the
         crop-resolution class map; without it the /8 stitch maps are
-        gathered on the device."""
+        gathered on the device.  Boxes without pixels are left out
+        (:func:`crop_boxes`)."""
         width, height = slide.dimensions
         canvas = np.zeros((height // 8, width // 8), np.uint8)
         bs = self.ensemble.config.batch_size
         net_h = self.ensemble.config.in_height
         net_w = self.ensemble.config.in_width
-        boxes = [[int(v) for v in det[:4]] for det in detections]
+        boxes = crop_boxes(detections)
         ds8 = on_crop is None
 
         def nearest_idx(out_n: int, src_n: int, table_n: int) -> np.ndarray:

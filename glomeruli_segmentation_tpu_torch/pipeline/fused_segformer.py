@@ -37,7 +37,7 @@ from ..data.segformer_dataset import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.preprocess import postprocess_nearest_host
 from ..ops.resize import _linear_weights, resize_bilinear_np
 from ..parallel.mesh import Replicas, upload
-from .fused import staged
+from .fused import crop_boxes, staged
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -100,7 +100,8 @@ class _Replica:
 class SegformerSlideSegmenter:
     """Whole slide: detections -> /8 prediction canvas, with the GTCS
     model.  Same ``segment_slide(slide, detections, progress, on_crop)``
-    surface as :class:`.fused.FusedSlideSegmenter`, so
+    surface as :class:`.fused.FusedSlideSegmenter`, and the same rule for
+    boxes without pixels (:func:`.fused.crop_boxes`), so
     :class:`.e2e.FusedEndToEnd` drives either model family.
 
     ``compute_dtype="float32"`` runs with TF32 off (the JAX package's f32
@@ -201,7 +202,7 @@ class SegformerSlideSegmenter:
         width, height = slide.dimensions
         canvas = np.zeros((height // 8, width // 8), np.uint8)
         bs = cfg.batch_size
-        boxes = [[int(v) for v in det[:4]] for det in detections]
+        boxes = crop_boxes(detections)
         ds8 = on_crop is None
 
         def sample_tables(crop_n: int, out_n: int, table_n: int):

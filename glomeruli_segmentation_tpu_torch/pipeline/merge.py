@@ -26,6 +26,15 @@ class MergeOverlappedGlomeruliError(Exception):
     pass
 
 
+def has_pixels(rect: Sequence[float]) -> bool:
+    """Whether a level-0 box holds pixels: its integer width and height,
+    as the crops are read, are both positive.  A merged box without
+    pixels keeps its CSV row, because the detector reported it, but no
+    stage crops, segments or labels it (the port's rule; the JAX package
+    stops the slide on it)."""
+    return int(rect[2]) > int(rect[0]) and int(rect[3]) > int(rect[1])
+
+
 def overlap_area(rect1: Sequence[float], rect2: Sequence[float]) -> float:
     """Intersection area; 0 when disjoint (merge_overlaped_glomus.py:292-302)."""
     if (rect1[2] >= rect2[0] and rect1[0] <= rect2[2]

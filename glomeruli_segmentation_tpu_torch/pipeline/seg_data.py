@@ -6,7 +6,9 @@ rectangle IoU (max-IoU wins), crops every detected region from the slide at
 level 0 into ``org_image/<patient>/xmin{X}_ymin{Y}_xmax{X}_ymax{Y}.PNG``
 (name coordinates are level-0/8, ``make_seg_data.py:193-197``), and paints
 GT polygons into the detected rect's frame as palette label PNGs
-(``:270-336``).  False positives get all-background labels.
+(``:270-336``).  False positives get all-background labels.  A merged
+box of zero width or height (:func:`.merge.has_pixels`) gets no crop and
+no label, where the JAX package stops; a warning counts such boxes.
 
 The port's own copy of ``glomeruli_segmentation_tpu/pipeline/seg_data.py``
 (numpy and PIL only; slides are read through the port's
@@ -16,6 +18,7 @@ rows to the JAX package's.
 from __future__ import annotations
 
 import glob
+import logging
 import os
 import re
 from collections import OrderedDict
@@ -31,6 +34,9 @@ from ..utils.labelme_io import (
     load_labelme_json,
     shapes_to_label,
 )
+from .merge import has_pixels
+
+log = logging.getLogger(__name__)
 
 MAGNIFICATION = 8
 MARGIN_UM = 20.0  # make_seg_data.py:39
@@ -195,7 +201,7 @@ class SegDataGenerator(AnnotationHandler):
             detected_ind = -1
             for ind, found_rect in enumerate(detections):
                 iou = self.check_overlap(gt_l, found_rect)
-                if iou < self.iou_threshold:
+                if iou < self.iou_threshold or not has_pixels(found_rect):
                     continue
                 iou_list.append(iou)
                 if not overlap_d or iou >= overlap_d["iou"]:
@@ -216,16 +222,22 @@ class SegDataGenerator(AnnotationHandler):
                                   "json": json_matches[0],
                                   "file_key": file_key})
 
-        # FP: detections that matched no GT still get crops + empty labels
+        # FP: detections that matched no GT still get crops + empty labels;
+        # a box without pixels gets neither
+        skipped = 0
         for ind in (x for x in range(len(detections))
                     if x not in detected_ind_l):
             found_rect = detections[ind]
+            if not has_pixels(found_rect):
+                skipped += 1
+                continue
             name = crop_name(found_rect)
             overlap_l.append({"org_gt": [], "margin_gt": [],
                               "pred": found_rect, "iou": 0, "json": "",
                               "file_key": file_key, "name": name})
             self._save_crop(found_rect, output_org_dir, name)
 
+        self._log_skipped(file_key, skipped)
         self.overlap_d = {file_key: overlap_l}
         self.generate_org_gt_png()
         if gt_num != 0:
@@ -291,6 +303,17 @@ class SegDataGenerator(AnnotationHandler):
             output_org_dir = os.path.join(self.output_dir, "org_image",
                                           file_key)
             os.makedirs(output_org_dir, exist_ok=True)
+            skipped = 0
             for found_rect in self.detected_glomus_list[file_key]:
+                if not has_pixels(found_rect):
+                    skipped += 1
+                    continue
                 self._save_crop(found_rect, output_org_dir,
                                 crop_name(found_rect))
+            self._log_skipped(file_key, skipped)
+
+    @staticmethod
+    def _log_skipped(file_key: str, skipped: int) -> None:
+        if skipped:
+            log.warning("%s: %d merged box(es) of zero width or height "
+                        "not cropped", file_key, skipped)

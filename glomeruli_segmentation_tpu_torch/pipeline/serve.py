@@ -24,7 +24,9 @@ accumulated merged-detection CSV, per-crop labelme JSONs, the stitched
 (merge_overlaped_glomus.py:102-124, VisualizeResults_iou.py:161-182,
 eval_wsi_segmentation.py:359-394, detect_glomus_test.py:110-112).
 A JSONL status stream (``serve_log.jsonl`` in the output dir) records
-one row per ticket for monitoring.
+one row per ticket for monitoring; a done slide whose merged boxes
+include some of zero width or height, left unsegmented, adds their count
+as ``degenerate_boxes``.
 
 Shutdown: touch the stop file (default ``<spool>/STOP``); the server
 finishes the wave in flight and exits.
@@ -198,6 +200,7 @@ class SlideServer:
                                 write_overlay=self.write_overlay)
             self.completed.add(patient_id)
             row.update(status="done", sec=round(time.time() - t0, 3))
+            self._count_degenerate(row, patient_id)
             os.replace(claimed, os.path.join(self.done_dir, name))
         except Exception as exc:  # noqa: BLE001 -- a bad slide must not
             # take the resident server (and its warm programs) down
@@ -216,6 +219,14 @@ class SlideServer:
             if os.path.isfile(claimed):
                 os.remove(claimed)
         return row
+
+    def _count_degenerate(self, row: dict, patient_id: str) -> None:
+        """A done slide's merged boxes of zero width or height, which the
+        pipeline left unsegmented, as the row's ``degenerate_boxes`` when
+        there are any (rows of slides without one keep their keys)."""
+        n = getattr(self.pipe, "degenerate_boxes", {}).pop(patient_id, 0)
+        if n:
+            row["degenerate_boxes"] = n
 
     def _emit(self, row: dict) -> None:
         self._log(row)
@@ -290,6 +301,7 @@ class SlideServer:
             if error is None:
                 self.completed.add(pid)
                 row["status"] = "done"
+                self._count_degenerate(row, pid)
                 os.replace(claimed, os.path.join(self.done_dir, name))
             else:
                 row.update(status="failed",
