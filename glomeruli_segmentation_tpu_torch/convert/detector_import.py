@@ -244,36 +244,22 @@ def random_detector_state(seed: int,
     return state
 
 
-def _lecun_normal(rng: np.random.RandomState, shape, fan_in: int
-                  ) -> np.ndarray:
-    """Flax's default kernel init, ``variance_scaling(1, "fan_in",
-    "truncated_normal")``: a normal cut at two standard deviations, scaled
-    to variance 1 / fan_in."""
-    z = rng.randn(*shape)
-    out = np.abs(z) > 2
-    while out.any():
-        z[out] = rng.randn(int(out.sum()))
-        out = np.abs(z) > 2
-    return (z * (np.sqrt(1.0 / fan_in) / 0.87962566103423978)).astype(
-        np.float32)
-
-
 def init_detector_state(seed: int,
                         config: FasterRCNNConfig = FasterRCNNConfig()
                         ) -> StateDict:
-    """Fresh detector weights as the JAX package's ``model.init`` lays them
-    out, made from ``seed`` with numpy: conv and Dense kernels drawn like
-    Flax's default (LeCun truncated normal), biases zero, BN scale 1, bias
-    0, mean 0, var 1.  The draws follow the port's module order, so the
-    values are not the JAX package's for the same seed."""
-    rng = np.random.RandomState(seed)
+    """Fresh detector weights: the JAX package's ``model.init(jax.random.
+    key(seed), ...)`` for the same seed and config, drawn with numpy
+    (:mod:`.flax_init`): conv and Dense kernels from Flax's default
+    (LeCun truncated normal) with each parameter's own key, biases zero,
+    BN scale 1, bias 0, mean 0, var 1."""
+    from .flax_init import lecun_normal, param_key
+
     model = FasterRCNN(config, train_form=True)
     state: StateDict = {}
     for name, m in model.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             w = m.weight
-            state[f"{name}.weight"] = torch.from_numpy(_lecun_normal(
-                rng, tuple(w.shape), w[0].numel()))
+            state[f"{name}.weight"] = torch.zeros(w.shape)
             if m.bias is not None:
                 state[f"{name}.bias"] = torch.zeros(w.shape[0])
         elif isinstance(m, nn.BatchNorm2d):
@@ -282,4 +268,13 @@ def init_detector_state(seed: int,
             state[f"{name}.bias"] = torch.zeros(c)
             state[f"{name}.mean"] = torch.zeros(c)
             state[f"{name}.var"] = torch.ones(c)
+    # each kernel is the first parameter its Flax module creates
+    kernels = {path[:-1]: value for path, value in
+               _flatten(flax_from_state_dict(state)["params"])
+               if path[-1] == "kernel"}
+    for path, value in kernels.items():
+        fan_in = int(np.prod(value.shape[:-1]))
+        key, tensor = _leaf(path + ("kernel",), lecun_normal(
+            param_key(seed, path, 1), value.shape, fan_in))
+        state[key] = tensor
     return state

@@ -13,9 +13,10 @@ else a uniform window; boxes are clipped to the window and kept when at
 least half their area survives.  With equal ``seed`` the window sequence is
 the JAX package's byte for byte: the JAX driver draws one batch for
 ``model.init`` before its loop, and so does this one.  The initial weights
-are not the JAX package's (:func:`..convert.detector_import.
-init_detector_state` draws Flax's initialisers with numpy; JAX's random
-stream cannot be made in torch).
+are the JAX package's for the same seed too, to float32 rounding
+(:func:`..convert.detector_import.init_detector_state` draws them as
+``model.init`` does, with numpy: :mod:`..convert.flax_init`), so the two
+packages' ``train_detector`` start from the same detector.
 
 A step holds both TF32 switches off under the port's TF32 lock over the
 forward, the backward and Adam's update (``torch.optim.Adam(lr,

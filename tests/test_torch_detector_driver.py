@@ -385,6 +385,29 @@ def test_flax_tree_round_trips(jax_init):
         assert a.dtype == np.float32 and np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("backbone,seed", [("tiny", 0), ("tiny", 3),
+                                           ("resnet50", 1)])
+def test_init_state_is_the_jax_packages_init(backbone, seed):
+    """``init_detector_state(seed)`` draws what the JAX package's
+    ``model.init(jax.random.key(seed))`` draws: every tensor within a few
+    float32 roundings of the largest of it (``erfinv`` is evaluated on
+    another path), BN and biases exactly."""
+    jcfg = jax_frcnn.FasterRCNNConfig(**dict(TINY, backbone=backbone))
+    x = np.random.RandomState(2).uniform(0, 255, (1, 128, 128, 3))
+    want = state_dict_from_flax(jax.tree.map(np.asarray, jax_frcnn.FasterRCNN(
+        jcfg).init(jax.random.key(seed), jnp.asarray(x, jnp.float32),
+                   jax_frcnn.build_anchors(jcfg), train=True)))
+    got = detector_import.init_detector_state(seed, port_frcnn.FasterRCNNConfig(
+        **dict(TINY, backbone=backbone)))
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        g = got[key]
+        if key.endswith(".weight"):
+            assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+        else:
+            assert torch.equal(g, w), key
+
+
 @pytest.mark.parametrize("backbone", ["tiny", "resnet50"])
 def test_init_state_has_the_flax_layout(jax_init, backbone):
     """Fresh weights as ``model.init`` lays them out: the same keys and
