@@ -65,9 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _reexec(argv) -> None:
-    """Replace the process with a fresh server run (same argv)."""
+    """Replace the process with a fresh server run (same argv).  ``execv``
+    drops what Python still buffers, so both streams are flushed first: a
+    supervisor reading the server's piped output keeps every line."""
     import sys
 
+    sys.stdout.flush()
+    sys.stderr.flush()
     os.execv(sys.executable,
              [sys.executable, "-m", "glomeruli_segmentation_tpu_torch.cli.serve"]
              + list(argv))
@@ -91,15 +95,10 @@ def _argv_with_max_slides(argv, remaining: int):
     return out + ["--max_slides", str(remaining)]
 
 
-def main(argv=None, device="cuda", devices=None):
-    """``device="cpu"`` runs every model on the CPU (for tests);
-    ``devices`` are the mesh's (default: the visible devices of
-    ``device``'s type)."""
-    import sys
-
-    raw_argv = list(sys.argv[1:] if argv is None else argv)
-    args = build_parser().parse_args(argv)
-
+def build_server(args, device="cuda", devices=None):
+    """The :class:`..pipeline.serve.SlideServer` that ``main`` runs for
+    parsed ``args``: the detector and the pipeline of ``gseg-e2e``'s flags
+    on ``device``, the spool and output of the server's own."""
     from ..parallel.mesh import visible_devices
     from ..pipeline.serve import SlideServer
     from .detect import load_backend
@@ -122,14 +121,27 @@ def main(argv=None, device="cuda", devices=None):
 
     json_dir = (None if args.no_json
                 else args.json_dir or os.path.join(args.output_dir, "json"))
-    server = SlideServer(pipe, args.spool_dir, args.output_dir,
-                         json_dir=json_dir,
-                         write_overlay=not args.no_overlay,
-                         poll_interval=args.poll_interval,
-                         stop_file=args.stop_file,
-                         server_id=args.server_id,
-                         pipeline=resolve_slide_pipeline(args),
-                         recycle_rss_mb=args.recycle_rss_mb)
+    return SlideServer(pipe, args.spool_dir, args.output_dir,
+                       json_dir=json_dir,
+                       write_overlay=not args.no_overlay,
+                       poll_interval=args.poll_interval,
+                       stop_file=args.stop_file,
+                       server_id=args.server_id,
+                       pipeline=resolve_slide_pipeline(args),
+                       recycle_rss_mb=args.recycle_rss_mb)
+
+
+def main(argv=None, device="cuda", devices=None):
+    """``device="cpu"`` runs every model on the CPU (for tests);
+    ``devices`` are the mesh's (default: the visible devices of
+    ``device``'s type)."""
+    import sys
+
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    server = build_server(args, device=device, devices=devices)
+    # the models are loaded: from here on tickets are taken
+    print(f"serving {args.spool_dir}", flush=True)
     n = server.serve(max_slides=args.max_slides)
     print(f"served {n} ticket(s)")
     if server.recycle_requested:

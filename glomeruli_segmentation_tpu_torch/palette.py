@@ -97,11 +97,13 @@ def relabel_to_cityscapes(img: np.ndarray) -> np.ndarray:
     mapping = {19: 255, 18: 33, 17: 32, 16: 31, 15: 28, 14: 27, 13: 26,
                12: 25, 11: 24, 10: 23, 9: 22, 8: 21, 7: 20, 6: 19, 5: 17,
                4: 13, 3: 12, 2: 11, 1: 8, 0: 7}
-    out = img.copy()
+    # one table lookup, not a pass over the image per class: the ids are
+    # non-negative, and every id the mapping leaves alone maps to itself
+    lut = np.arange(max(256, int(img.max()) + 1 if img.size else 0))
     for src, dst in mapping.items():
-        out[img == src] = dst
-    out[out == 255] = 0
-    return out
+        lut[src] = dst
+    lut[lut == 255] = 0
+    return lut.astype(img.dtype)[img]
 
 
 def relabel_from_cityscapes(img: np.ndarray) -> np.ndarray:

@@ -20,11 +20,13 @@ they are used, so a missing one raises there.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import datetime
 import json
 import logging
 import os
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -39,6 +41,48 @@ from .seg_data import MAGNIFICATION
 from .segment import build_labelme_doc
 
 log = logging.getLogger(__name__)
+
+# threads that write a slide's per-crop artifacts (:class:`_CropWriter`)
+CROP_WRITERS = 4
+
+
+class _CropWriter:
+    """Writes a slide's per-crop artifacts on :data:`CROP_WRITERS` threads
+    while its segmentation goes on.  A labelme document (contours, a PNG
+    of the crop's map, the JSON) releases the interpreter lock for most of
+    its time, and on a slide of large crops the documents are most of the
+    slide's time.  At most twice as many crops as threads wait, so a
+    slide's full-resolution maps are not all held at once.  Leaving the
+    ``with`` block waits for every write, then raises the first that
+    failed (unless the block itself raised)."""
+
+    def __init__(self, write):
+        self._write = write
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            CROP_WRITERS, thread_name_prefix="crop-writer")
+        self._slots = threading.BoundedSemaphore(2 * CROP_WRITERS)
+        self._futures = []
+
+    def submit(self, box, class_map) -> None:
+        self._slots.acquire()
+
+        def run():
+            try:
+                self._write(box, class_map)
+            finally:
+                self._slots.release()
+
+        self._futures.append(self._pool.submit(run))
+
+    def __enter__(self) -> "_CropWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._pool.shutdown(wait=True)
+        if exc_type is None:
+            for future in self._futures:
+                future.result()
+        return False
 
 
 class _CollectingDetector(GlomusDetector):
@@ -102,6 +146,12 @@ class FusedEndToEnd:
         # patient -> merged boxes of zero width or height that the
         # segmenter left out (:func:`.merge.has_pixels`), per segmented slide
         self.degenerate_boxes: Dict[str, int] = {}
+        # the one thread that scans every pipelined run's slides
+        # (:meth:`run_slides`), made at its first use.  A thread that runs
+        # the detector keeps ~1.1 MB of the CUDA libraries' per-thread state
+        # (cuDNN's execution plans) after it exits, so a scanning thread
+        # per call would leak that much on every wave of a resident server
+        self._scanner: Optional[concurrent.futures.ThreadPoolExecutor] = None
 
     def detect_slide(self, slide, data_dir: str, patient_id: str,
                      file_name: str) -> List[List[float]]:
@@ -195,7 +245,8 @@ class FusedEndToEnd:
 
         ``jobs``: iterable of ``(slide_path, patient_id)``.  With
         ``pipeline=True`` the slides stream through three overlapped
-        stages: slide N+1's detection scan + box merge (producer thread),
+        stages: slide N+1's detection scan + box merge (a producer on the
+        pipe's one scanning thread, kept across calls),
         slide N's fused segmentation (caller thread), and slide N-1's
         artifact emission -- overlay reads + CSV/log flush, pure host
         work -- on an emitter thread.  Both hand-off queues are one-deep;
@@ -216,7 +267,6 @@ class FusedEndToEnd:
         never treated as slide failures -- they abort the stream.
         Returns the number of successful slides."""
         import queue
-        import threading
 
         jobs = list(jobs)
         # ok / first per-slide failure (no-reporter mode) / emitter
@@ -322,7 +372,10 @@ class FusedEndToEnd:
                         state["emitter_error"] = e
                     stop.set()
 
-        threading.Thread(target=producer, daemon=True).start()
+        if self._scanner is None:
+            self._scanner = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix="scan")
+        produced = self._scanner.submit(producer)
         et = threading.Thread(target=emitter, daemon=True)
         et.start()
         abort_error = None
@@ -367,6 +420,7 @@ class FusedEndToEnd:
                         (merged, canvas, t_detect)))
         emit_q.put(SENTINEL)
         et.join()
+        produced.result()
         if abort_error is not None:
             raise abort_error
         if state["emitter_error"] is not None:
@@ -403,8 +457,8 @@ class FusedEndToEnd:
     def _segment(self, slide, patient_id: str, merged: List[List[float]],
                  json_dir: Optional[str], progress: bool) -> np.ndarray:
         """Stage 2: the fused device segmentation (+ per-crop artifacts,
-        which segment_slide's own one-deep pipeline overlaps with device
-        compute).  Merged boxes of zero width or height keep their CSV row
+        written by :class:`_CropWriter`'s threads while the segmentation
+        goes on).  Merged boxes of zero width or height keep their CSV row
         but are not segmented and get no per-crop artifact; their count
         goes to ``degenerate_boxes[patient_id]`` and to the log."""
         skipped = sum(not has_pixels(box) for box in merged)
@@ -413,41 +467,43 @@ class FusedEndToEnd:
             log.warning("%s: %d merged box(es) of zero width or height kept "
                         "in the merged CSV, not segmented", patient_id,
                         skipped)
-        on_crop = None
-        if json_dir is not None:
-            crop_dir = os.path.join(json_dir, patient_id)
-            os.makedirs(crop_dir, exist_ok=True)
+        if json_dir is None:
+            return self.segmenter.segment_slide(slide, merged,
+                                                progress=progress)
+        crop_dir = os.path.join(json_dir, patient_id)
+        os.makedirs(crop_dir, exist_ok=True)
 
-            def crop_name(box) -> str:
-                x1, y1, x2, y2 = box
-                return "xmin{}_ymin{}_xmax{}_ymax{}".format(
-                    int(x1 / MAGNIFICATION), int(y1 / MAGNIFICATION),
-                    int(x2 / MAGNIFICATION), int(y2 / MAGNIFICATION))
+        def crop_name(box) -> str:
+            x1, y1, x2, y2 = box
+            return "xmin{}_ymin{}_xmax{}_ymax{}".format(
+                int(x1 / MAGNIFICATION), int(y1 / MAGNIFICATION),
+                int(x2 / MAGNIFICATION), int(y2 / MAGNIFICATION))
 
-            if self.crop_artifact == "labelme":
-                def on_crop(box, class_map):
-                    name = crop_name(box)
-                    relabeled = relabel_to_cityscapes(
-                        class_map.astype(np.uint8))
-                    doc = build_labelme_doc(relabeled, relabeled,
-                                            name + ".PNG")
-                    with open(os.path.join(crop_dir, name + ".json"),
-                              "w") as jf:
-                        json.dump(doc, jf, indent=4)
-            else:
-                # GTCS contract: crop-resolution label PNGs named by the /8
-                # box coords, mode 'L' grayscale -- what the staged GTCS
-                # stitcher reads
-                from PIL import Image
+        if self.crop_artifact == "labelme":
+            def write(box, class_map):
+                name = crop_name(box)
+                relabeled = relabel_to_cityscapes(
+                    class_map.astype(np.uint8))
+                doc = build_labelme_doc(relabeled, relabeled,
+                                        name + ".PNG")
+                with open(os.path.join(crop_dir, name + ".json"),
+                          "w") as jf:
+                    json.dump(doc, jf, indent=4)
+        else:
+            # GTCS contract: crop-resolution label PNGs named by the /8
+            # box coords, mode 'L' grayscale -- what the staged GTCS
+            # stitcher reads
+            from PIL import Image
 
-                def on_crop(box, class_map):
-                    Image.fromarray(class_map.astype(np.uint8),
-                                    mode="L").save(
-                        os.path.join(crop_dir, crop_name(box) + ".PNG"))
+            def write(box, class_map):
+                Image.fromarray(class_map.astype(np.uint8),
+                                mode="L").save(
+                    os.path.join(crop_dir, crop_name(box) + ".PNG"))
 
-        return self.segmenter.segment_slide(slide, merged,
-                                            progress=progress,
-                                            on_crop=on_crop)
+        with _CropWriter(write) as writer:
+            return self.segmenter.segment_slide(slide, merged,
+                                                progress=progress,
+                                                on_crop=writer.submit)
 
     def _emit(self, slide, slide_path: str, patient_id: str,
               merged: List[List[float]], canvas: np.ndarray,

@@ -71,7 +71,6 @@ def pas_like_image(height: int, width: int, seed: int = 0,
     img = np.full((height, width, 3), background, np.uint8)
     noise = rng.randint(-12, 12, size=img.shape).astype(np.int16)
     img = np.clip(img.astype(np.int16) + noise, 0, 255).astype(np.uint8)
-    yy, xx = np.mgrid[:height, :width]
     r_lo = max(8, int(min(height, width) * radius_frac[0]))
     r_hi = max(r_lo + 1, int(min(height, width) * radius_frac[1]))
     if centers is None:
@@ -84,10 +83,17 @@ def pas_like_image(height: int, width: int, seed: int = 0,
     else:
         centers = [tuple(c) for c in centers]
     for cx, cy, r in centers:
-        mask = ((yy - cy) ** 2 + (xx - cx) ** 2) < r ** 2
-        img[mask] = blob_color
-        inner = ((yy - cy) ** 2 + (xx - cx) ** 2) < (r // 2) ** 2
-        img[inner] = inner_color
+        # each disc within its bounding box: the same pixels as over the
+        # whole image, at a cost that does not grow with the image
+        y0, y1 = max(cy - r, 0), min(cy + r + 1, height)
+        x0, x1 = max(cx - r, 0), min(cx + r + 1, width)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        dist2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        box = img[y0:y1, x0:x1]
+        box[dist2 < r ** 2] = blob_color
+        box[dist2 < (r // 2) ** 2] = inner_color
     return img, centers
 
 

@@ -397,3 +397,86 @@ def test_missing_image_library_raises(ensembles, slides, tmp_path,
     if missing == "cv2":
         with pytest.raises(ImportError):
             pipe.run_slide(path, str(tmp_path / "o"), pid)
+
+
+# ---- the per-crop artifact writer's threads ----
+def test_crop_writer_writes_every_crop_and_raises_the_first_failure():
+    import threading
+    import time
+
+    written, lock = [], threading.Lock()
+    waiting, most = [0], [0]
+
+    def write(box, class_map):
+        time.sleep(0.002)
+        with lock:
+            written.append(box)
+            waiting[0] -= 1
+
+    with port_e2e._CropWriter(write) as writer:
+        for i in range(40):
+            with lock:
+                waiting[0] += 1
+                most[0] = max(most[0], waiting[0])
+            writer.submit(i, None)
+    assert sorted(written) == list(range(40))
+    # a crop's map is held from its submit to its write: at most twice as
+    # many crops as threads (one more while submit waits for a slot)
+    assert most[0] <= 2 * port_e2e.CROP_WRITERS + 1
+
+    def failing(box, class_map):
+        if box in (3, 7):
+            raise ValueError(f"crop {box}")
+
+    with pytest.raises(ValueError, match="crop 3"):
+        with port_e2e._CropWriter(failing) as writer:
+            for i in range(10):
+                writer.submit(i, None)
+
+
+def test_crop_writer_waits_and_keeps_the_segmenters_error():
+    """An error of the segmentation itself is what leaves the block, after
+    every write submitted before it has finished."""
+    import time
+
+    done = []
+
+    def write(box, class_map):
+        time.sleep(0.01)
+        done.append(box)
+
+    with pytest.raises(KeyError):
+        with port_e2e._CropWriter(write) as writer:
+            for i in range(6):
+                writer.submit(i, None)
+            raise KeyError("segmenter")
+    assert sorted(done) == list(range(6))
+
+
+def test_pipelined_runs_scan_on_one_thread_across_calls(ensembles, slides,
+                                                        tmp_path):
+    """Every pipelined ``run_slides`` call of a pipe scans on the pipe's
+    one scanning thread, not on a thread of its own: on a card a thread
+    that ran the detector keeps the CUDA libraries' per-thread state after
+    it exits, so a thread per call (per wave of a resident server) would
+    leak it.  No thread is left behind but that one."""
+    import threading
+
+    scanned = []
+
+    class Recording(StubBackend):
+        def detect_batch(self, images):
+            scanned.append(threading.get_native_id())
+            return super().detect_batch(images)
+
+    pipe = port_e2e.FusedEndToEnd(Recording(), ensembles[0], **GEOMETRY,
+                                  detect_conf=0.5, merge_conf=0.9)
+    threads = []
+    for call in range(3):
+        d = tmp_path / f"call{call}"
+        port_e2e.FusedEndToEnd.prepare_output(str(d), "OPT_PAS")
+        assert pipe.run_slides(slides[:2], str(d), pipeline=True) == 2
+        threads.append(threading.active_count())
+    assert len(set(scanned)) == 1 and \
+        scanned[0] != threading.get_native_id()
+    assert threads[0] == threads[1] == threads[2]

@@ -260,3 +260,18 @@ def test_make_target_list_cli_matches_jax(tmp_path):
         with pytest.raises(AssertionError):
             mod.main(["--base_list_csv", str(base), "--data_dir", str(data),
                       "--output_file", str(tmp_path / "bad.txt")])
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32, np.int64])
+def test_relabel_to_cityscapes_matches_jax_on_every_id(dtype):
+    """The port's table lookup against the JAX package's pass per class:
+    every byte value (19 and 255 go to 0, ids past 19 stay), ids past 255
+    in a wider type, and an empty map."""
+    ids = np.arange(256).reshape(16, 16).astype(dtype)
+    if dtype != np.uint8:
+        ids = np.concatenate([ids, ids + 256])
+    for labels in (ids, ids[:0]):
+        got = palette.relabel_to_cityscapes(labels)
+        want = jax_palette.relabel_to_cityscapes(labels)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)

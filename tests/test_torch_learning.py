@@ -390,6 +390,71 @@ def test_detector_pass_rate_runs_each_seed_in_a_worker(tmp_path,
     assert len({a[1] for a in calls}) == 12
 
 
+def test_measured_runs_go_in_order_to_one_spawned_worker(tmp_path,
+                                                         monkeypatch):
+    """The runs measured beside the floors go, in order, to one spawned
+    worker process while the gated runs go on, each with a directory and
+    a log of its own."""
+    import concurrent.futures
+
+    calls = []
+
+    class Pool:
+        def __init__(self, workers, mp_context):
+            assert workers == 1
+            assert mp_context.get_start_method() == "spawn"
+
+        def submit(self, fn, *args):
+            assert fn is chip_smoke.learning_measured_run
+            calls.append(args)
+            return concurrent.futures.Future()
+
+    monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", Pool)
+    trees = {"espnet": tmp_path / "e", "gtcs": tmp_path / "g",
+             "detector": tmp_path / "d"}
+    _, runs = chip_smoke.learning_measured(trees, tmp_path / "m", "cpu")
+    assert list(runs) == [a[0] for a in calls] == [
+        "ESPNet --bf16 seed 0", "SegFormer --bf16 seed 0",
+        "detector tiny --bf16 seed 0", "detector ResNet-50-C4 f32 seed 0"]
+    assert all(a[1] == {k: str(v) for k, v in trees.items()} for a in calls)
+    assert len({a[2] for a in calls}) == len({a[4] for a in calls}) == 4
+
+
+@pytest.mark.parametrize("label,want", [
+    ("ESPNet --bf16 seed 0",
+     ("espnet", "e", chip_smoke.LEARN_ESPNET_EPOCHS, {"bf16": True})),
+    ("SegFormer --bf16 seed 0",
+     ("segformer", "g", chip_smoke.LEARN_SEGFORMER_EPOCHS, {"bf16": True})),
+    ("detector tiny --bf16 seed 0",
+     ("detector", "d", chip_smoke.LEARN_DET_STEPS, {"bf16": True})),
+    ("detector ResNet-50-C4 f32 seed 0",
+     ("detector", "d", chip_smoke.LEARN_DET_STEPS,
+      {"backbone": "resnet50"})),
+])
+def test_measured_run_trains_its_recipe_with_its_lines_to_its_log(
+        tmp_path, monkeypatch, label, want):
+    """Each measured run is the trainer, population and recipe that the
+    phase ran in its own process before; the trainer's lines go to the
+    run's log."""
+    got = []
+    for name in ("espnet", "segformer", "detector"):
+        def run(root, out, device, length, _name=name, **kw):
+            print(f"{_name} trains")
+            got.append((_name, root.name, length, kw, out, device))
+            return {"launches": (0, 0, 0)}
+        monkeypatch.setattr(chip_smoke, f"{name}_learning_run", run)
+    monkeypatch.setattr(chip_smoke.torch, "set_num_threads", lambda n: None)
+    trees = {"espnet": str(tmp_path / "e"), "gtcs": str(tmp_path / "g"),
+             "detector": str(tmp_path / "d")}
+    log = tmp_path / "run.log"
+    r = chip_smoke.learning_measured_run(label, trees, str(tmp_path / "o"),
+                                         "cpu", str(log))
+    assert r == {"launches": (0, 0, 0)}
+    assert [g[:4] for g in got] == [want]
+    assert got[0][4:] == (tmp_path / "o", "cpu")
+    assert log.read_text() == f"{want[0]} trains\n"
+
+
 # ---------------- the full bars (slow) ----------------
 @pytest.fixture
 def espnet_tree(tmp_path):
