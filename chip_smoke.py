@@ -290,7 +290,8 @@ is not printed.  It needs a CUDA card and exits non-zero without one.
 distributed_training`` phase 21, ``--only degenerate_boxes`` phase 22 (on
 the folds and detector it writes), ``--only learning`` phase 23 at seeds
 0, 1 and 2 (0 gated, 1 and 2 measured) with the detector's pass rate at
-seeds 0-11 in place of its second seed-0 run, ``--only soak`` phase 24
+seeds 0-11 (``--rate_seeds 36``: 0-35) in place of its second seed-0 run,
+beside the CPU runs' counts at those seeds, ``--only soak`` phase 24
 over 100 tickets (``bench_soak.py``'s default) with its verdict line,
 each without the result lines.
 """
@@ -5099,6 +5100,10 @@ LEARN_SEGFORMER_FLOOR = (0.85, 0.50, 0.65)
 # and make-seg-data on 4 held-out slides; recall, precision and F1
 LEARN_DET_STEPS = 500
 LEARN_DET_FLOOR = (0.90, 0.80, 0.87)
+# the detector step's losses, in the order it returns them; a run reports
+# the mean of each over its last LEARN_LOSS_TAIL steps
+DET_LOSSES = ("rpn_cls", "rpn_reg", "roi_cls", "roi_reg", "total")
+LEARN_LOSS_TAIL = 100
 LEARN_MPP = 0.25
 LEARN_MARGIN = int(round(20.0 / LEARN_MPP))
 # stain tone, contrast and glomerulus size vary; 00006 (low contrast, a
@@ -5151,17 +5156,38 @@ LEARN_K1_BATCH = 32
 # loaders' shuffles and augmentations; the populations stay the tests'
 LEARN_SEEDS = (0, 1, 2)
 # The detector bar at one seed is a coin: which seeds clear it is decided
-# by float32 rounding.  At seeds 0-11 on the CPU the JAX package's recipe
-# clears at 7, the same recipe with its step in float64 (its own
-# arithmetic without float32 rounding) at 3, missing at 4 of the float32
-# run's 7 (tests/test_torch_learning.py
-# test_detector_pass_rate_beside_the_jax_package).  So the tiny f32
-# detector's pass rate at those seeds is measured, in LEARN_RATE_WORKERS
-# processes sharing the card, and printed beside both counts with the
-# one-sided Fisher p of each; every seed's run must lower its loss
+# by float32 rounding (the recipe with its step in float64 misses at seeds
+# where its float32 run clears).  So the tiny f32 detector's pass rate at
+# seeds 0 to n - 1 (LEARN_RATE_SEEDS, or --rate_seeds n) is measured, in
+# LEARN_RATE_WORKERS processes sharing the card, and printed beside the
+# CPU runs' counts at those seeds with the one-sided Fisher p of each:
+# the seeds that clear the bar and the seeds that reach its precision
+# floor; every seed's run must lower its loss
 LEARN_RATE_SEEDS = tuple(range(12))
-LEARN_RATE_JAX = {"float32": 7, "float64": 3}
 LEARN_RATE_WORKERS = 4
+# the CPU runs of tests/test_torch_learning.py
+# test_detector_pass_rate_beside_the_jax_package: for each, the seeds it ran
+# (0 to n - 1) and those at which it cleared the bar and reached the
+# precision floor.  The JAX package's recipe as shipped (float32), with
+# Flax's two-pass BatchNorm variance (tests/torch_flax_variance.py), and
+# with its step in float64
+LEARN_RATE_PORT_CPU = {
+    "seeds": 36, "clear": (8, 11, 12, 22, 23, 26, 28, 30),
+    "precision": (0, 8, 11, 12, 19, 22, 23, 25, 26, 27, 28, 30)}
+LEARN_RATE_JAX = {
+    "float32": {
+        "seeds": 36,
+        "clear": (0, 1, 2, 8, 9, 10, 11, 15, 20, 26, 27, 28, 31, 32),
+        "precision": (0, 1, 2, 8, 9, 10, 11, 15, 19, 20, 22, 26, 27, 28,
+                      31, 32)},
+    "float32 two-pass": {
+        "seeds": 36,
+        "clear": (3, 4, 7, 9, 10, 11, 14, 15, 18, 22, 27, 32),
+        "precision": (0, 1, 3, 4, 7, 8, 9, 10, 11, 14, 15, 18, 19, 20, 22,
+                      27, 28, 32)},
+    "float64": {"seeds": 12, "clear": (8, 9, 10),
+                "precision": (3, 4, 8, 9, 10, 11)},
+}
 # the runs measured beside the floors, not gated, and the population each
 # trains on, in the order one worker process runs them
 LEARN_MEASURED = {"ESPNet --bf16 seed 0": "espnet",
@@ -5611,22 +5637,15 @@ def detector_learning_run(root: Path, out: Path, device: str = "cuda",
                           seed: int = 0, backbone: str = "tiny") -> dict:
     """The detector bar: ``train_detector`` at the JAX test's recipe on
     ``device`` (the 4 training slides, under :func:`deterministic_kernels`),
-    then on the 4 held-out slides
-    ``gseg-detect`` (``cli/detect.main`` with the test's flags), ``run_merge``
-    (0.3 / 0.35) and ``SegDataGenerator.scan_files`` against the XMLs and
-    labelme GT JSONs: :func:`detection_scores`; the median s/step after the
-    first, the window batches of the scan and the kernel counts of the
-    training and of the scan."""
-    from glomeruli_segmentation_tpu_torch.pipeline.merge import run_merge
-    from glomeruli_segmentation_tpu_torch.pipeline.seg_data import (
-        SegDataGenerator,
-    )
+    then :func:`detector_scan` of the trained detector; the mean of each
+    loss over the last ``LEARN_LOSS_TAIL`` steps, the median s/step after
+    the first and the kernel counts of the training."""
     from glomeruli_segmentation_tpu_torch.train.detector_driver import (
         train_detector,
     )
 
     cfg, model_cfg = learning_detector_configs(steps, seed, backbone)
-    model_dir, det_out = out / "model", out / "out"
+    model_dir = out / "model"
     rec = TrainRecorder()
     esp_block_fused.launches = esp_block_padded.launches = nms.launches = 0
     t0 = time.perf_counter()
@@ -5641,7 +5660,31 @@ def detector_learning_run(root: Path, out: Path, device: str = "cuda",
     train_s = time.perf_counter() - t0
     train_launches = (esp_block_fused.launches, esp_block_padded.launches,
                       nms.launches)
+    tail = np.mean([s[0] for s in rec.detector[-LEARN_LOSS_TAIL:]], axis=0)
+    return {**detector_scan(root, model_dir, out, device),
+            "model_dir": model_dir,
+            "loss_means": dict(zip(DET_LOSSES, tail.tolist())),
+            **step_times([s[1] for s in rec.detector]),
+            "first_loss": rec.detector[0][0][-1],
+            "final_loss": rec.detector[-1][0][-1], "seconds": train_s,
+            "launches": train_launches}
 
+
+def detector_scan(root: Path, model_dir: Path, out: Path,
+                  device: str = "cuda") -> dict:
+    """The detector bar's scan of the detector in ``model_dir`` (either
+    package's ``detector.ckpt.pth``) on the 4 held-out slides:
+    ``gseg-detect`` (``cli/detect.main`` with the JAX test's flags),
+    ``run_merge`` (0.3 / 0.35) and ``SegDataGenerator.scan_files`` against
+    the XMLs and labelme GT JSONs, under ``out``: :func:`detection_scores`,
+    the rows and crops per slide, the window batches of the scan and its
+    kernel counts."""
+    from glomeruli_segmentation_tpu_torch.pipeline.merge import run_merge
+    from glomeruli_segmentation_tpu_torch.pipeline.seg_data import (
+        SegDataGenerator,
+    )
+
+    det_out = out / "out"
     batches = []
     submit = TorchDetectorBackend.detect_batch_submit
 
@@ -5678,13 +5721,8 @@ def detector_learning_run(root: Path, out: Path, device: str = "cuda",
              if (out / "seg_out" / "org_image" / p).is_dir() else 0
              for p in LEARN_TEST}
     return {**detection_scores(root, merged_csv, rows), "rows": len(rows),
-            "crops": crops, "model_dir": model_dir,
-            **step_times([s[1] for s in rec.detector]),
-            "first_loss": rec.detector[0][0][-1],
-            "final_loss": rec.detector[-1][0][-1], "seconds": train_s,
-            "scan_s": scan_s, "window_batches": len(batches),
-            "windows": sum(batches), "launches": train_launches,
-            "detect_launches": detect_launches}
+            "crops": crops, "scan_s": scan_s, "window_batches": len(batches),
+            "windows": sum(batches), "detect_launches": detect_launches}
 
 
 def detector_clears(r: dict) -> bool:
@@ -5713,8 +5751,9 @@ def detector_rate_run(root: str, out: str, device: str, seed: int) -> dict:
     return {k: v for k, v in r.items() if k != "model_dir"}
 
 
-def detector_pass_rate(root: Path, out: Path, device: str) -> dict:
-    """The tiny f32 detector bar at each of ``LEARN_RATE_SEEDS``, in
+def detector_pass_rate(root: Path, out: Path, device: str,
+                       seeds=LEARN_RATE_SEEDS) -> dict:
+    """The tiny f32 detector bar at each of ``seeds``, in
     ``LEARN_RATE_WORKERS`` spawned processes that share ``device``: each
     seed's run by seed."""
     import multiprocessing
@@ -5724,22 +5763,45 @@ def detector_pass_rate(root: Path, out: Path, device: str) -> dict:
             mp_context=multiprocessing.get_context("spawn")) as pool:
         runs = {seed: pool.submit(detector_rate_run, str(root),
                                   str(out / f"seed{seed}"), device, seed)
-                for seed in LEARN_RATE_SEEDS}
+                for seed in seeds}
         return {seed: run.result() for seed, run in runs.items()}
 
 
+def rate_beside_cpu(cleared: list, precise: list, n: int) -> str:
+    """The pass rate's counts at seeds 0 to ``n`` - 1 (``cleared`` the
+    bar, ``precise`` at its precision floor) beside each CPU run's at the
+    same seeds (:data:`LEARN_RATE_PORT_CPU`, :data:`LEARN_RATE_JAX`, those
+    that ran them), with the one-sided Fisher p of each count against
+    the CPU run's."""
+    cpu = {"port": LEARN_RATE_PORT_CPU,
+           **{f"JAX {k}": v for k, v in LEARN_RATE_JAX.items()}}
+    parts = []
+    for kind, rec in cpu.items():
+        if rec["seeds"] < n:
+            continue
+        counts = []
+        for name, mine in (("clear", cleared), ("precision", precise)):
+            theirs = sum(s < n for s in rec[name])
+            p = fisher_below(len(mine), theirs, n)
+            counts.append(f"{name} {theirs} (p {p:.4f})")
+        parts.append(f"{kind} " + ", ".join(counts))
+    return "; ".join(parts)
+
+
 def detector_rate_summary(root: Path, out: Path, device: str,
-                          results: dict, misses: list,
-                          name_power: str) -> dict:
-    """The tiny f32 detector's pass rate (:func:`detector_pass_rate`): one
-    line per seed, added to ``results``; the count that clears beside the
-    JAX package's (``LEARN_RATE_JAX``) with the one-sided Fisher p of
-    each; a run that does not lower its loss goes to ``misses``.  Returns
-    the seed-0 run."""
+                          results: dict, misses: list, name_power: str,
+                          seeds=LEARN_RATE_SEEDS) -> dict:
+    """The tiny f32 detector's pass rate at ``seeds``, 0 to n - 1
+    (:func:`detector_pass_rate`): one line per seed, added to ``results``;
+    the counts that clear and that reach the precision floor beside the
+    CPU runs' (:func:`rate_beside_cpu`); a run that does not lower its loss
+    goes to ``misses``.  Returns the seed-0 run."""
     t0 = time.perf_counter()
-    rate = detector_pass_rate(root, out, device)
+    rate = detector_pass_rate(root, out, device, seeds)
     rate_s = time.perf_counter() - t0
     cleared = [seed for seed, r in rate.items() if detector_clears(r)]
+    precise = [seed for seed, r in rate.items()
+               if r["precision"] >= LEARN_DET_FLOOR[1]]
     for seed, r in rate.items():
         results[f"detector tiny f32 seed {seed} (pass rate)"] = r
         print(f"learning detector tiny f32 seed {seed} (pass rate): " +
@@ -5748,14 +5810,16 @@ def detector_rate_summary(root: Path, out: Path, device: str,
               f"; hits {r['hits']} of {r['gts']}, {r['dets']} merged "
               f"detections, rows {r['rows']}, crops {r['crops']}; "
               f"{'clears' if seed in cleared else 'misses'}; final loss "
-              f"{r['final_loss']:.8f}, {r['s_per_step']:.4f} s/step, "
-              f"{r['seconds']:.2f} s | {name_power}", flush=True)
+              f"{r['final_loss']:.8f}, losses' means over the last "
+              f"{LEARN_LOSS_TAIL} steps " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in r["loss_means"].items())
+              + f"; {r['s_per_step']:.4f} s/step, {r['seconds']:.2f} s | "
+              f"{name_power}", flush=True)
     n = len(rate)
     print(f"learning detector tiny f32 pass rate: {len(cleared)} of {n} "
-          f"seeds clear ({cleared}); the JAX package's recipe on the CPU: "
-          + ", ".join(f"{k} {v} of {n} (one-sided Fisher p "
-                      f"{fisher_below(len(cleared), v, n):.4f})"
-                      for k, v in LEARN_RATE_JAX.items())
+          f"seeds clear ({cleared}), {len(precise)} reach precision "
+          f"{LEARN_DET_FLOOR[1]} ({precise}); on the CPU at the same seeds: "
+          + rate_beside_cpu(cleared, precise, n)
           + f"; {LEARN_RATE_WORKERS} processes, {rate_s:.2f} s | "
           f"{name_power}", flush=True)
     misses.extend(f"detector seed {seed} (pass rate): final loss "
@@ -5934,12 +5998,13 @@ def learning_measured(trees: dict, work: Path, device: str) -> dict:
 
 
 def learning_phase(name_power: str, seeds=(0,), device: str = "cuda",
-                   rate: bool = False, beside=None) -> dict:
+                   rate: bool = False, beside=None,
+                   rate_seeds=LEARN_RATE_SEEDS) -> dict:
     """The JAX package's learning bars on the port's trainers, at their
     recipes on ``device``: for each of ``seeds`` the ESPNet and SegFormer
     bars in f32 and the ESPNet bar on two gloo ranks, and at seed 0 the
     detector bar; with ``rate`` the detector's pass rate at
-    ``LEARN_RATE_SEEDS`` (:func:`detector_pass_rate`), else the seed-0
+    ``rate_seeds`` (:func:`detector_pass_rate`), else the seed-0
     detector once more; either second seed-0 run must give the gated
     run's detector, loss for loss (its training runs deterministic
     kernels); then, at seed 0, each trainer's ``--bf16`` run and the
@@ -6024,7 +6089,7 @@ def learning_phase(name_power: str, seeds=(0,), device: str = "cuda",
         if rate:
             again = detector_rate_summary(trees["detector"], root / "rate",
                                           device, results, misses,
-                                          name_power)
+                                          name_power, rate_seeds)
         else:
             again = detector_learning_run(trees["detector"], root / "again",
                                           device, LEARN_DET_STEPS)
@@ -6674,7 +6739,16 @@ def main(argv=None) -> int:
                                            "soak"],
                         help="build, then run this phase alone and print "
                              "its lines, without the result lines")
-    only = parser.parse_args(argv).only
+    parser.add_argument("--rate_seeds", type=int,
+                        default=len(LEARN_RATE_SEEDS), metavar="N",
+                        help="with --only learning: the detector's pass "
+                             "rate at seeds 0 to N - 1 (default "
+                             f"{len(LEARN_RATE_SEEDS)})")
+    args = parser.parse_args(argv)
+    only = args.only
+    if args.rate_seeds < 1 or (args.rate_seeds != len(LEARN_RATE_SEEDS)
+                               and only != "learning"):
+        parser.error("--rate_seeds takes a count >= 1, with --only learning")
     # cuBLAS's fixed workspace, which torch's deterministic algorithms ask
     # for (the learning phase's detector runs): set before the first cuBLAS
     # call; the learning phase's worker processes inherit it
@@ -6726,7 +6800,8 @@ def main(argv=None) -> int:
         elif only == "distributed_training":
             distributed_training_phase(name_power)
         elif only == "learning":
-            learning_phase(name_power, seeds=LEARN_SEEDS, rate=True)
+            learning_phase(name_power, seeds=LEARN_SEEDS, rate=True,
+                           rate_seeds=tuple(range(args.rate_seeds)))
         elif only == "soak":
             # the e2e phase's folds and detector, without its runs
             write_checkpoints(WORK / "folds", 5, 2, 8)

@@ -23,6 +23,12 @@ all-reduce.  Sums of ``x`` and ``x^2`` would take the same one all-reduce
 but lose the variance to cancellation where a channel's mean is large
 against its spread (the detector's first layer, on 0-255 windows), as
 Flax's own float32 ``E[x^2] - E[x]^2`` does.
+
+The two-pass variance is deliberate, on one device as across ranks: it is
+the model's batch variance, where Flax's default one-pass form
+(``use_fast_variance=True``) departs from it by ~8e-3 on such a channel;
+``tests/test_torch_batch_norm.py`` holds it to float64 and to Flax's
+two-pass form.
 """
 from __future__ import annotations
 

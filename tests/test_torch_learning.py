@@ -33,6 +33,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from torch_flax_variance import flax_two_pass_variance  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ESPNET_RECIPE = dict(n_train=16, n_val=6, size=(96, 192))
@@ -286,6 +287,11 @@ def test_detector_run_cut_writes_checkpoint_and_scores(
     assert (r["windows"], r["window_batches"]) == (24, 12)
     assert r["gts"] == 14 and 0.0 <= r["recall"] <= 1.0
     assert r["launches"] == r["detect_launches"] == (0, 0, 0)
+    # the losses' means over the run's last steps (all 5 here)
+    means = r["loss_means"]
+    assert tuple(means) == chip_smoke.DET_LOSSES
+    assert means["total"] == pytest.approx(
+        sum(means[k] for k in chip_smoke.DET_LOSSES[:4]), rel=1e-6)
 
 
 def test_detector_steps_run_deterministic_kernels(monkeypatch, tmp_path):
@@ -388,6 +394,116 @@ def test_detector_pass_rate_runs_each_seed_in_a_worker(tmp_path,
     assert all(r["seed"] == seed for seed, r in runs.items())
     assert [a[-1] for a in calls] == list(range(12))
     assert len({a[1] for a in calls}) == 12
+
+
+def test_detector_pass_rate_takes_its_seeds(tmp_path, monkeypatch):
+    """``--rate_seeds 36`` hands seeds 0-35 to the pass rate's workers,
+    one directory each."""
+    import concurrent.futures
+
+    calls = []
+
+    class Pool:
+        def __init__(self, workers, mp_context):
+            assert workers == chip_smoke.LEARN_RATE_WORKERS
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def submit(self, fn, *args):
+            calls.append(args)
+            future = concurrent.futures.Future()
+            future.set_result(_run(seed=args[-1]))
+            return future
+
+    monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", Pool)
+    runs = chip_smoke.detector_pass_rate(tmp_path, tmp_path / "rate", "cpu",
+                                         tuple(range(36)))
+    assert list(runs) == [a[-1] for a in calls] == list(range(36))
+    assert len({a[1] for a in calls}) == 36
+
+
+@pytest.mark.parametrize("k,ref,n", [(3, 9, 36), (12, 12, 36), (0, 36, 36),
+                                     (20, 5, 36)])
+def test_fisher_below_at_36_seeds(k, ref, n):
+    from scipy.stats import fisher_exact
+
+    want = fisher_exact([[k, n - k], [ref, n - ref]], alternative="less")[1]
+    assert chip_smoke.fisher_below(k, ref, n) == pytest.approx(want,
+                                                               rel=1e-12)
+
+
+def test_rate_beside_cpu_counts_each_cpu_run_at_the_card_seeds(monkeypatch):
+    """The card's counts go beside each CPU run's counts at the same seeds
+    (those below n), with the one-sided Fisher p; a CPU run that did not
+    reach n seeds is left out."""
+    monkeypatch.setattr(chip_smoke, "LEARN_RATE_PORT_CPU", {
+        "seeds": 36, "clear": (1, 20), "precision": (1, 5, 20, 30)})
+    monkeypatch.setattr(chip_smoke, "LEARN_RATE_JAX", {
+        "float32": {"seeds": 36, "clear": (0, 1, 2, 13),
+                    "precision": (0, 1, 2, 3, 13)},
+        "float64": {"seeds": 12, "clear": (8,), "precision": (8, 9)}})
+    f = chip_smoke.fisher_below
+    assert chip_smoke.rate_beside_cpu([0, 4], [0, 4, 8], 12) == (
+        f"port clear 1 (p {f(2, 1, 12):.4f}), precision 2 (p "
+        f"{f(3, 2, 12):.4f}); JAX float32 clear 3 (p {f(2, 3, 12):.4f}), "
+        f"precision 4 (p {f(3, 4, 12):.4f}); JAX float64 clear 1 (p "
+        f"{f(2, 1, 12):.4f}), precision 2 (p {f(3, 2, 12):.4f})")
+    line = chip_smoke.rate_beside_cpu([0], [0], 36)
+    assert "float64" not in line
+    assert line.startswith("port clear 2 ") and "JAX float32 clear 4 " in line
+
+
+def test_rate_summary_prints_each_seed_and_the_counts_beside_the_cpu(
+        monkeypatch, capsys):
+    """The pass rate's lines: one per seed with its scores and losses'
+    means, then the counts that clear and reach the precision floor beside
+    the CPU runs' at the same seeds; a run that does not lower its loss is
+    a miss; the seed-0 run comes back."""
+    seeds = tuple(range(36))
+
+    def run(seed):
+        clear = seed % 3 == 0
+        return _run(recall=1.0, precision=0.9 if seed % 2 == 0 else 0.5,
+                    f1=0.95 if clear else 0.5, hits=14, gts=14, dets=15,
+                    final_loss=3.0 if seed != 5 else 9.5, first_loss=9.0,
+                    s_per_step=0.01, seconds=5.0,
+                    loss_means=dict.fromkeys(chip_smoke.DET_LOSSES, 0.5))
+
+    got = []
+    monkeypatch.setattr(chip_smoke, "detector_pass_rate",
+                        lambda root, out, device, s: got.append(s) or {
+                            seed: run(seed) for seed in s})
+    results, misses = {}, []
+    first = chip_smoke.detector_rate_summary(
+        pathlib.Path("r"), pathlib.Path("o"), "cpu", results, misses, "card",
+        seeds)
+    assert got == [seeds] and first == run(0)
+    assert len(results) == 36
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 37 and all(line.endswith("| card") for line in out)
+    assert "losses' means over the last 100 steps rpn_cls 0.5000" in out[0]
+    cleared = [s for s in seeds if s % 6 == 0]
+    assert (f"pass rate: {len(cleared)} of 36 seeds clear ({cleared}), 18 "
+            "reach precision 0.8") in out[-1]
+    assert chip_smoke.rate_beside_cpu(cleared, list(seeds[::2]), 36) in \
+        out[-1]
+    assert misses == ["detector seed 5 (pass rate): final loss 9.5 not "
+                      "below the first 9.0"]
+
+
+@pytest.mark.parametrize("argv", [["--rate_seeds", "36"],
+                                  ["--only", "soak", "--rate_seeds", "36"],
+                                  ["--only", "learning", "--rate_seeds", "0"]])
+def test_rate_seeds_goes_with_only_learning(argv):
+    """``--rate_seeds`` takes a count of at least 1, with ``--only
+    learning`` alone."""
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.main(argv)
+    assert exc.value.code == 2
 
 
 def test_measured_runs_go_in_order_to_one_spawned_worker(tmp_path,
@@ -628,7 +744,7 @@ def _jax_float64_training(root, model_dir, seed, steps):
     verbatim) in float64: the same windows and initial weights, the
     recipe's own arithmetic without float32 rounding.  Writes the
     checkpoint in float32, as the JAX driver does; returns each step's
-    total loss."""
+    losses by name."""
     import dataclasses
 
     import jax
@@ -686,7 +802,7 @@ def _jax_float64_training(root, model_dir, seed, steps):
             params, batch_stats, opt_state, losses = step(
                 params, batch_stats, opt_state, np.asarray(x, np.float64),
                 gb, gc, gv)
-            history.append(float(losses["total"]))
+            history.append({k: float(v) for k, v in losses.items()})
         trained = jax.tree.map(lambda a: np.asarray(a, np.float32), {
             "params": params, "batch_stats": batch_stats})
     model_dir.mkdir(parents=True, exist_ok=True)
@@ -696,14 +812,23 @@ def _jax_float64_training(root, model_dir, seed, steps):
     return history
 
 
+def _loss_means(steps):
+    """The mean of each loss over the last ``chip_smoke.LEARN_LOSS_TAIL``
+    of ``steps`` (each step's losses by name)."""
+    tail = steps[-chip_smoke.LEARN_LOSS_TAIL:]
+    return {k: float(np.mean([step[k] for step in tail]))
+            for k in chip_smoke.DET_LOSSES}
+
+
 def _jax_detector(root, out, seed=0, bf16=False, float64=False):
     """The JAX test's detector recipe (test_detection_recall_floor) at
     ``seed``, with ``bf16``, or with the step in float64: recall,
-    precision and F1 on the held-out slides, the make-seg-data rows and
-    the crops per held-out slide."""
-    from glomeruli_segmentation_tpu.cli.detect import main as detect_main
-    from glomeruli_segmentation_tpu.pipeline.merge import run_merge
-    from glomeruli_segmentation_tpu.pipeline.seg_data import SegDataGenerator
+    precision and F1 on the held-out slides, the make-seg-data rows, the
+    crops per held-out slide (:func:`_jax_scan`) and the losses' means over
+    the last steps (from the trainer's log lines, 4 decimals, in float32)."""
+    import contextlib
+    import io
+
     from glomeruli_segmentation_tpu.train.detector_driver import (
         train_detector,
     )
@@ -711,11 +836,27 @@ def _jax_detector(root, out, seed=0, bf16=False, float64=False):
     model_dir = out / "model"
     cfg, model_config = _jax_detector_configs(seed, chip_smoke.LEARN_DET_STEPS)
     if float64:
-        _jax_float64_training(root, model_dir, seed, cfg.steps)
+        steps = _jax_float64_training(root, model_dir, seed, cfg.steps)
     else:
-        train_detector("OPT_PAS", str(root / "data"), str(root / "train.txt"),
-                       str(model_dir), cfg, model_config, log_every=100,
-                       bf16=bf16)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            train_detector("OPT_PAS", str(root / "data"),
+                           str(root / "train.txt"), str(model_dir), cfg,
+                           model_config, log_every=1, bf16=bf16)
+        steps = _step_losses(log.getvalue())
+    return dict(_jax_scan(root, model_dir, out),
+                loss_means=_loss_means(steps))
+
+
+def _jax_scan(root, model_dir, out):
+    """The JAX test's scan of the detector in ``model_dir`` (either
+    package's checkpoint) on the held-out slides: the JAX package's
+    detect, merge and make-seg-data; recall, precision and F1, the rows
+    and the crops per held-out slide."""
+    from glomeruli_segmentation_tpu.cli.detect import main as detect_main
+    from glomeruli_segmentation_tpu.pipeline.merge import run_merge
+    from glomeruli_segmentation_tpu.pipeline.seg_data import SegDataGenerator
+
     det_out = out / "out"
     detect_main([
         "--model", str(model_dir), "--target_list", str(root / "test.txt"),
@@ -792,11 +933,16 @@ def test_bf16_bar_beside_the_jax_package(trainer, tmp_path,
 
 
 # ---------------- the detector bar: arithmetic and pass rate ----------------
+def _step_losses(text):
+    """Each logged step's losses by name from a trainer's ``step i: ...``
+    lines (both packages log every step with ``log_every=1``)."""
+    return [{k: float(v) for k, v in re.findall(r"(\w+)=([-\d.]+)", line)}
+            for line in re.findall(r"^step \d+: (.*)$", text, re.M)]
+
+
 def _step_totals(text):
-    """Each logged step's total loss from a trainer's ``step i: ...`` lines
-    (both packages log every step with ``log_every=1``)."""
-    return [float(m) for m in re.findall(r"^step \d+: .*total=([-\d.]+)$",
-                                         text, re.M)]
+    """Each logged step's total loss from a trainer's lines."""
+    return [step["total"] for step in _step_losses(text)]
 
 
 @pytest.mark.slow
@@ -807,10 +953,13 @@ def test_detector_steps_follow_the_recipes_float64_arithmetic(
     -- over the first two updates (seed 1): each step's total loss within
     5e-4 of it, relative.  The JAX package's float32 step departs from it
     at the first update, by more than 10 times the port's largest
-    distance (its float32 gradient lies further from the float64 one than
-    the port's: ``test_torch_detector_driver.py`` ``jax_steps``).  Later
-    steps part in both packages: by step 5 the port's own trajectory moves
-    by percents with its thread count alone."""
+    distance: Flax's BatchNorm takes the batch variance in one float32
+    pass, ``E[x^2] - E[x]^2``, which cancels on the first layers
+    (``test_torch_batch_norm.py``).  The same JAX run with Flax's two-pass
+    variance (``flax_two_pass_variance``) follows the float64 arithmetic
+    within 5e-4, and the port follows it within 5e-4.  Later steps part
+    in every package: by step 5 the port's own trajectory moves by
+    percents with its thread count alone."""
     from glomeruli_segmentation_tpu.train.detector_driver import (
         train_detector as jax_train_detector,
     )
@@ -819,7 +968,8 @@ def test_detector_steps_follow_the_recipes_float64_arithmetic(
     )
 
     steps, seed, root = 3, 1, detector_population
-    exact = _jax_float64_training(root, tmp_path / "f64", seed, steps)
+    exact = [h["total"] for h in
+             _jax_float64_training(root, tmp_path / "f64", seed, steps)]
     cfg, model_config = chip_smoke.learning_detector_configs(steps, seed)
     capsys.readouterr()
     train_detector("OPT_PAS", str(root / "data"), str(root / "train.txt"),
@@ -830,23 +980,34 @@ def test_detector_steps_follow_the_recipes_float64_arithmetic(
                        str(root / "train.txt"), str(tmp_path / "jax"),
                        *_jax_detector_configs(seed, steps), log_every=1)
     jax32 = _step_totals(capsys.readouterr().out)
-    assert len(port) == len(jax32) == len(exact) == steps
+    with flax_two_pass_variance():
+        jax_train_detector("OPT_PAS", str(root / "data"),
+                           str(root / "train.txt"), str(tmp_path / "two"),
+                           *_jax_detector_configs(seed, steps), log_every=1)
+    two_pass = _step_totals(capsys.readouterr().out)
+    assert len(port) == len(jax32) == len(two_pass) == len(exact) == steps
 
-    def distance(run):
-        return [abs(a - b) / abs(b) for a, b in zip(run, exact)]
+    def distance(run, ref=exact):
+        return [abs(a - b) / abs(b) for a, b in zip(run, ref)]
 
     with capsys.disabled():
         print(f"\ntotal loss by step, seed {seed}: float64 {exact}\n"
-              f"  port {port}\n  JAX float32 {jax32}")
+              f"  port {port}\n  JAX float32 {jax32}\n"
+              f"  JAX float32 two-pass {two_pass}")
     assert max(distance(port)) <= 5e-4, distance(port)
     assert max(distance(jax32)) > 10 * max(distance(port)), \
         (distance(jax32), distance(port))
+    assert max(distance(two_pass)) <= 5e-4, distance(two_pass)
+    assert max(distance(port, two_pass)) <= 5e-4, distance(port, two_pass)
 
 
 def _rate_run(kind, root, out, seed):
     """One seed of the detector bar, in a worker process: the port
-    (``port``), the JAX package (``jax``) or the JAX package's recipe with
-    its step in float64 (``jax float64``)."""
+    (``port``), the JAX package (``jax``), the JAX package with Flax's
+    two-pass BatchNorm variance (``jax two-pass``) or the JAX package's
+    recipe with its step in float64 (``jax float64``)."""
+    import contextlib
+
     import torch
 
     torch.set_num_threads(2)
@@ -854,49 +1015,162 @@ def _rate_run(kind, root, out, seed):
     if kind == "port":
         r = chip_smoke.detector_learning_run(root, out, "cpu", seed=seed)
         return {k: r[k] for k in ("recall", "precision", "f1", "rows",
-                                  "crops")}
-    return _jax_detector(root, out, seed=seed, float64=kind == "jax float64")
+                                  "crops", "loss_means")}
+    with (flax_two_pass_variance() if kind == "jax two-pass"
+          else contextlib.nullcontext()):
+        return _jax_detector(root, out, seed=seed,
+                             float64=kind == "jax float64")
+
+
+# each case: its seeds, the kinds it runs, and the counts of seeds that the
+# port's may not lie below, against each kind named, at p < 0.05 (one-sided
+# Fisher): ``clear`` (chip_smoke.detector_clears) and ``precision`` (at its
+# floor).  Seeds 0-35 decide whether the port's trained detector falls
+# short of the JAX package's: a fault is shown if either count of the
+# port's lies below the JAX float32 run's or its two-pass run's
+RATE_CASES = {
+    "seeds 0-11": (chip_smoke.LEARN_RATE_SEEDS,
+                   ("port", "jax", "jax two-pass", "jax float64"),
+                   ("jax two-pass", "jax float64"), ("clear",)),
+    "seeds 0-35": (tuple(range(36)), ("port", "jax", "jax two-pass"),
+                   ("jax", "jax two-pass"), ("clear", "precision")),
+}
+
+
+def _rate_counts(runs, kinds, seeds):
+    """The seeds at which each kind clears the bar and reaches the
+    precision floor."""
+    floor = chip_smoke.LEARN_DET_FLOOR[1]
+    return {kind: {
+        "clear": [s for s in seeds if chip_smoke.detector_clears(
+            runs[kind, s])],
+        "precision": [s for s in seeds if runs[kind, s]["precision"] >= floor]}
+        for kind in kinds}
 
 
 @pytest.mark.slow
+@pytest.mark.parametrize("case", RATE_CASES)
 def test_detector_pass_rate_beside_the_jax_package(detector_population,
-                                                   tmp_path):
-    """The tiny detector bar at seeds 0-11 (``chip_smoke.LEARN_RATE_SEEDS``)
-    for the port, the JAX package and the JAX package's recipe with its
-    step in float64, in 4 worker processes; each seed's scores and the
-    count that clears everything the JAX test asserts
-    (``chip_smoke.detector_clears``) are printed.  Which seeds clear is
+                                                   tmp_path, case):
+    """The tiny detector bar at each case's seeds for its kinds, in
+    ``chip_smoke.LEARN_RATE_WORKERS`` worker processes: each seed's scores,
+    rows, and losses' means over the last steps, and the seeds that clear
+    everything the JAX test asserts (``chip_smoke.detector_clears``) and
+    that reach the precision floor, are printed.  Which seeds clear is
     float32 rounding (the float64 run misses at seeds where the float32
-    one clears), so the counts are compared: the port's may not be below
-    the float64 run's at p < 0.05, one-sided Fisher."""
+    one clears), so the counts are compared: the port's may not lie below
+    those the case names at p < 0.05, one-sided Fisher."""
     import concurrent.futures
     import multiprocessing
+    import time
 
-    from scipy.stats import fisher_exact
-
-    kinds = ("port", "jax", "jax float64")
-    seeds = chip_smoke.LEARN_RATE_SEEDS
+    seeds, kinds, against, counts = RATE_CASES[case]
+    t0 = time.perf_counter()
     with concurrent.futures.ProcessPoolExecutor(
-            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+            chip_smoke.LEARN_RATE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
         futures = {(kind, seed): pool.submit(
             _rate_run, kind, str(detector_population),
             str(tmp_path / f"{kind.replace(' ', '_')}{seed}"), seed)
-            for kind in kinds for seed in seeds}
+            for seed in seeds for kind in kinds}
         runs = {key: f.result() for key, f in futures.items()}
-    cleared = {kind: [s for s in seeds if chip_smoke.detector_clears(
-        runs[kind, s])] for kind in kinds}
-    lines = ["seed  " + "  ".join(f"{k:>28s}" for k in kinds)]
+    seconds = time.perf_counter() - t0
+    got = _rate_counts(runs, kinds, seeds)
+    lines = [f"{'seed':>4s}  {'kind':12s}  recall precision     f1  rows  "
+             "clear  " + "  ".join(f"{k:>7s}" for k in chip_smoke.DET_LOSSES)]
     for s in seeds:
-        lines.append(f"{s:4d}  " + "  ".join(
-            "{recall:.3f}/{precision:.3f}/{f1:.3f} r{rows} {ok:>5s}".format(
-                ok="clear" if s in cleared[k] else "miss", **runs[k, s])
-            .rjust(28) for k in kinds))
-    lines.append("clear " + "  ".join(
-        f"{len(cleared[k])} of {len(seeds)}".rjust(28) for k in kinds))
-    print("\nthe detector bar, recall/precision/F1 and rows, by seed:\n"
-          + "\n".join(lines))
+        for k in kinds:
+            r = runs[k, s]
+            lines.append(
+                f"{s:4d}  {k:12s}  {r['recall']:6.4f} {r['precision']:9.4f} "
+                f"{r['f1']:6.4f} {r['rows']:5d}  "
+                f"{'clear' if s in got[k]['clear'] else 'miss':>5s}  "
+                + "  ".join(f"{r['loss_means'][n]:7.4f}"
+                            for n in chip_smoke.DET_LOSSES))
     n = len(seeds)
-    port, exact = len(cleared["port"]), len(cleared["jax float64"])
-    p = fisher_exact([[port, n - port], [exact, n - exact]],
-                     alternative="less")[1]
-    assert p >= 0.05, (cleared, p)
+    for k in kinds:
+        mean = {m: np.mean([runs[k, s][m] for s in seeds])
+                for m in ("precision", "recall")}
+        losses = {m: np.mean([runs[k, s]["loss_means"][m] for s in seeds])
+                  for m in chip_smoke.DET_LOSSES}
+        lines.append(
+            f"{k}: clears {len(got[k]['clear'])} of {n} {got[k]['clear']}; "
+            f"precision >= {chip_smoke.LEARN_DET_FLOOR[1]} at "
+            f"{len(got[k]['precision'])} {got[k]['precision']}; mean "
+            f"precision {mean['precision']:.4f}, recall {mean['recall']:.4f};"
+            " losses' means " + ", ".join(f"{a} {b:.4f}"
+                                          for a, b in losses.items()))
+    p = {(count, ref): chip_smoke.fisher_below(
+        len(got["port"][count]), len(got[ref][count]), n)
+        for count in counts for ref in against}
+    lines += [f"port {count} {len(got['port'][count])} against {ref} "
+              f"{len(got[ref][count])}: one-sided Fisher p {v:.4f}"
+              for (count, ref), v in p.items()]
+    print(f"\nthe detector bar at {case}, {len(runs)} runs in "
+          f"{chip_smoke.LEARN_RATE_WORKERS} processes, {seconds:.1f} s on "
+          "the CPU:\n" + "\n".join(lines) + "\nruns " + json.dumps(
+              {f"{k} {s}": r for (k, s), r in runs.items()}))
+    assert all(v >= 0.05 for v in p.values()), (got, p)
+
+
+def _scan_both(kind, root, out, seed):
+    """One seed of the detector bar trained by ``kind`` (``port``, or
+    ``jax two-pass``: the JAX package with Flax's two-pass BatchNorm
+    variance), in a worker process; the trained detector scanned by the
+    port's chain (``chip_smoke.detector_scan``) and by the JAX package's
+    (:func:`_jax_scan`)."""
+    import torch
+
+    torch.set_num_threads(2)
+    root, out = pathlib.Path(root), pathlib.Path(out)
+    model_dir = out / "train" / "model"
+    if kind == "port":
+        chip_smoke.detector_learning_run(root, out / "train", "cpu",
+                                         seed=seed)
+    else:
+        with flax_two_pass_variance():
+            _jax_detector(root, out / "train", seed=seed)
+    keys = ("recall", "precision", "f1", "hits", "dets", "rows", "crops")
+    return {"port": {k: chip_smoke.detector_scan(
+                root, model_dir, out / "port_scan", "cpu")[k] for k in keys},
+            "jax": {k: _jax_scan(root, model_dir, out / "jax_scan")[k]
+                    for k in keys}}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", [1, 2])
+def test_trained_detectors_score_alike_in_both_packages(detector_population,
+                                                        tmp_path, seed):
+    """The detector bar's scan is no part of the pass-rate gap: a detector
+    trained at the bar's recipe (500 steps) by the port and one trained by
+    the JAX package (two-pass BatchNorm variance) each scan alike through
+    the port's detect -> merge -> make-seg-data chain and the JAX
+    package's: the same hits and rows, crops for the same held-out slides,
+    and merged detections within ``max(1, 5%)`` of each other.  Both
+    chains scan in bfloat16 (both ``gseg-detect``'s default), where the
+    packages' scores agree within a bf16 rounding (5.4e-3 measured) and
+    boxes within a pixel of the scan level, so a detection near the 0.1
+    confidence or a merge near 0.3 IoU can flip (seed 2's JAX detector:
+    37 merged detections through the port's chain, 38 through the JAX
+    package's; the other three: equal), and a crop's rounded file name
+    can differ."""
+    import concurrent.futures
+    import multiprocessing
+
+    kinds = ("port", "jax two-pass")
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {kind: pool.submit(
+            _scan_both, kind, str(detector_population),
+            str(tmp_path / kind.replace(" ", "_")), seed) for kind in kinds}
+        runs = {kind: f.result() for kind, f in futures.items()}
+    print(f"\nseed {seed}, each trained detector scanned by both chains: "
+          + json.dumps(runs))
+    for kind, r in runs.items():
+        port, jax_ = r["port"], r["jax"]
+        assert (port["hits"], port["rows"]) == (jax_["hits"], jax_["rows"]), \
+            (kind, r)
+        assert abs(port["dets"] - jax_["dets"]) <= max(
+            1, 0.05 * jax_["dets"]), (kind, r)
+        assert {p for p, n in port["crops"].items() if n} \
+            == {p for p, n in jax_["crops"].items() if n}, (kind, r)
