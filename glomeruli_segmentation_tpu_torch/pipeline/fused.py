@@ -57,6 +57,7 @@ from ..ops.preprocess import (FLAT_OFFSET_LIMIT, copy_pixels,
 from ..parallel.fold_parallel import (FoldParallelEnsemble, stack_states,
                                       unstack)
 from ..parallel.mesh import Replicas, upload
+from ..utils.timing import count, span
 from .merge import has_pixels
 
 log = logging.getLogger(__name__)
@@ -122,7 +123,8 @@ def staged(stage, chunks):
 
     def items():
         while True:
-            item = q.get()
+            with span("seg.stage_wait"):
+                item = q.get()
             if item is sentinel:
                 return
             if isinstance(item, BaseException):
@@ -334,7 +336,10 @@ class EnsembleSegmenter:
         def one(models, dev, *parts):
             if shared is not None:
                 parts = (shared,) + parts
-            return readback(forward(models, *self._upload(dev, *parts)))
+            with span("seg.upload"):
+                uploaded = self._upload(dev, *parts)
+            with span("seg.launch"):
+                return readback(forward(models, *uploaded))
 
         return self._cores.submit(one, data, *tables)
 
@@ -543,9 +548,14 @@ class FusedSlideSegmenter:
             return idx.astype(np.int32)
 
         def stage_batch(chunk):
-            crops = [slide.read_region_array((x1, y1), 0,
-                                             (x2 - x1, y2 - y1))[:, :, ::-1]
-                     for x1, y1, x2, y2 in chunk]  # BGR
+            with span("seg.read"):
+                crops = [slide.read_region_array(
+                    (x1, y1), 0, (x2 - x1, y2 - y1))[:, :, ::-1]
+                    for x1, y1, x2, y2 in chunk]  # BGR
+            with span("seg.pack"):
+                return pack_batch(chunk, crops)
+
+        def pack_batch(chunk, crops):
             n = len(crops)
             # shapes bucketed to multiples of 256, as in the JAX package
             max_h = -(-max(c.shape[0] for c in crops) // 256) * 256
@@ -591,6 +601,8 @@ class FusedSlideSegmenter:
         def submit(item):
             chunk, n, staged, hs, ws, ys, xs = item
             ens = self.ensemble
+            count("seg.slots_used", n)
+            count("seg.slots_computed", bs)
             if self.host_resize:
                 if ds8:
                     out = ens.submit_batch_gather_resized(staged, ys, xs)
@@ -611,12 +623,17 @@ class FusedSlideSegmenter:
             return chunk, n, out
 
         def drain(pending):
-            nonlocal done
             chunk, n, out = pending
             # the full-resolution readback may come packed (pack_output);
             # the gathered /8 maps never do
-            maps = (self.ensemble.read_gathered(out) if ds8
-                    else self.ensemble.read_maps(out))
+            with span("seg.result_wait"):
+                maps = (self.ensemble.read_gathered(out) if ds8
+                        else self.ensemble.read_maps(out))
+            with span("seg.paste"):
+                paste(chunk, n, maps)
+
+        def paste(chunk, n, maps):
+            nonlocal done
             for (x1, y1, x2, y2), net_map in zip(chunk, maps[:n]):
                 if on_crop is not None:
                     on_crop((x1, y1, x2, y2),

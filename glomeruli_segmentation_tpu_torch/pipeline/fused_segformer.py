@@ -37,6 +37,7 @@ from ..data.segformer_dataset import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.preprocess import postprocess_nearest_host
 from ..ops.resize import _linear_weights, resize_bilinear_np
 from ..parallel.mesh import Replicas, upload
+from ..utils.timing import count, span
 from .fused import crop_boxes, staged
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -178,10 +179,12 @@ class SegformerSlideSegmenter:
         the gathered /8 maps with ``tables``, else the logits; returns the
         readback handle(s)."""
         def one(rep, dev, *parts):
-            parts = [upload(a, dev) for a in parts]
-            if tables is None:
-                return readback(self.logits(*parts))
-            return readback(self.gather(*parts))
+            with span("seg.upload"):
+                parts = [upload(a, dev) for a in parts]
+            with span("seg.launch"):
+                if tables is None:
+                    return readback(self.logits(*parts))
+                return readback(self.gather(*parts))
 
         return self._replicas.submit(one, resized, *(tables or ()))
 
@@ -221,15 +224,21 @@ class SegformerSlideSegmenter:
             resized = np.zeros((bs, size, size, 3), np.uint8)
             dims = []
             for i, (x1, y1, x2, y2) in enumerate(chunk):
-                crop = slide.read_region_array((x1, y1), 0,
-                                               (x2 - x1, y2 - y1))  # RGB
-                # uint8 cv2 INTER_LINEAR: the SegformerFeatureExtractor
-                # resize of the staged chain
-                resized[i] = cv2.resize(crop, (size, size),
-                                        interpolation=cv2.INTER_LINEAR)
+                with span("seg.read"):
+                    crop = slide.read_region_array(
+                        (x1, y1), 0, (x2 - x1, y2 - y1))  # RGB
+                with span("seg.pack"):
+                    # uint8 cv2 INTER_LINEAR: the SegformerFeatureExtractor
+                    # resize of the staged chain
+                    resized[i] = cv2.resize(crop, (size, size),
+                                            interpolation=cv2.INTER_LINEAR)
                 dims.append((crop.shape[0], crop.shape[1]))
             if not ds8:
                 return chunk, resized, None
+            with span("seg.pack"):
+                return chunk, resized, sample_batch(dims)
+
+        def sample_batch(dims):
             # table extents bucketed to multiples of 64, as in the JAX
             # package
             th = max(-(-max(h // 8 for h, _ in dims) // 64) * 64, 64)
@@ -243,18 +252,25 @@ class SegformerSlideSegmenter:
             for i, (h, w) in enumerate(dims):
                 ylo[i], yhi[i], wy[i] = sample_tables(h, h // 8, th)
                 xlo[i], xhi[i], wx[i] = sample_tables(w, w // 8, tw)
-            return chunk, resized, (ylo, yhi, wy, xlo, xhi, wx)
+            return ylo, yhi, wy, xlo, xhi, wx
 
         done = 0
 
         def submit(item):
             chunk, resized, tables = item
+            count("seg.slots_used", len(chunk))
+            count("seg.slots_computed", bs)
             return chunk, self.submit(resized, tables if ds8 else None)
 
         def drain(pending):
-            nonlocal done
             chunk, handle = pending
-            maps = read_host(handle)
+            with span("seg.result_wait"):
+                maps = read_host(handle)
+            with span("seg.paste"):
+                paste(chunk, maps)
+
+        def paste(chunk, maps):
+            nonlocal done
             for k, (x1, y1, x2, y2) in enumerate(chunk):
                 ch, cw = (y2 - y1) // 8, (x2 - x1) // 8
                 if ds8:

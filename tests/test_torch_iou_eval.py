@@ -1,18 +1,12 @@
-"""The port's evaluator (``eval/iou_eval.py``) and timing helpers
-(``utils/timing.py``) against the JAX package's on the CPU: ``IouEval``'s
-histograms and metrics, the torch ``confusion_matrix`` against the JAX one,
-``StageTimer``'s rows, and ``device_trace`` writing a ``torch.profiler``
-trace."""
-import json
-
+"""The port's evaluator (``eval/iou_eval.py``) against the JAX package's
+on the CPU: ``IouEval``'s histograms and metrics, and the torch
+``confusion_matrix`` against the JAX one."""
 import numpy as np
 import pytest
 import torch
 
 from glomeruli_segmentation_tpu.eval import iou_eval as jax_iou
-from glomeruli_segmentation_tpu.utils import timing as jax_timing
 from glomeruli_segmentation_tpu_torch.eval import iou_eval
-from glomeruli_segmentation_tpu_torch.utils import timing
 
 
 def _batches(seed, n=4, classes=5, shape=(3, 40, 50)):
@@ -86,43 +80,3 @@ def test_confusion_matrix_matches_jax(case):
         iou_eval.device_confusion(torch.from_numpy(pred),
                                   torch.from_numpy(gt), n).numpy(),
         np.asarray(jax_iou.device_confusion(pred, gt, n)))
-
-
-def test_stage_timer_rows_match_jax(tmp_path):
-    """The same CSV rows (times aside) and JSONL records (times aside)."""
-    rows = {}
-    for key, mod in (("port", timing), ("jax", jax_timing)):
-        csv, jsonl = tmp_path / f"{key}.csv", tmp_path / f"{key}.jsonl"
-        with mod.StageTimer(str(csv), str(jsonl), stage="detect") as t:
-            with t.item("H1", windows=3):
-                pass
-            with pytest.raises(KeyError):
-                with t.item('a,"b'):
-                    raise KeyError("recorded all the same")
-        lines = csv.read_text().splitlines()
-        records = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
-        rows[key] = ([lines[0]] + [ln.rsplit(",", 1)[0] for ln in lines[1:]],
-                     [{k: v for k, v in r.items() if k not in ("seconds",
-                                                               "ts")}
-                      for r in records])
-        assert all(r["seconds"] >= 0 for r in records)
-    assert rows["port"] == rows["jax"]
-    assert rows["port"][0][:2] == ["file,time", '"H1"']
-    with timing.StageTimer() as t:     # nothing to write: no files
-        with t.item("x"):
-            pass
-
-
-def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
-    with timing.device_trace(None):
-        torch.ones(4).sum()
-    log_dir = tmp_path / "trace"
-    with timing.device_trace(str(log_dir)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    (trace,) = log_dir.glob("trace_*.json")
-    events = json.loads(trace.read_text())["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
-    with pytest.raises(ZeroDivisionError):
-        with timing.device_trace(str(log_dir)):
-            1 / 0
-    assert len(list(log_dir.glob("trace_*.json"))) == 2
