@@ -134,14 +134,22 @@ def flat_quantum(batch_size: int, max_h: int, max_w: int,
 
 
 def pack_crops_flat(crops, batch_size: int, max_w: int = 0, max_h: int = 0,
-                    bucket_bytes: int = 1 << 21):
+                    bucket_bytes: int = 1 << 21, pin_memory: bool = False):
     """Pack ragged HWC uint8 crops into one flat transfer buffer.
 
     Returns ``(flat, offsets, heights, widths)``: ``flat`` holds each crop's
     bytes back to back, its length rounded up to :func:`flat_quantum` plus
     ``max(max_w, widest crop) * 3`` slack bytes, so that no valid row of
-    :func:`unflatten_crops` is clamped.  Empty batch slots get offset 0 and
-    size 1x1.  Raises if the buffer would pass :data:`FLAT_OFFSET_LIMIT`.
+    :func:`unflatten_crops` is clamped; the bytes past the crops are zero.
+    Empty batch slots get offset 0 and size 1x1.  Raises if the buffer
+    would pass :data:`FLAT_OFFSET_LIMIT`.
+
+    ``flat`` is a numpy array, or with ``pin_memory`` a uint8 tensor in
+    pinned memory from torch's host allocator: the crops are then written
+    once, into the memory the host-to-device copy reads, and the upload
+    makes no staging copy.  Pass that tensor itself to the upload, not a
+    numpy view of it: the allocator keeps the block from reuse until the
+    copies enqueued from the tensor have run.
     """
     n = len(crops)
     offsets = np.zeros(batch_size, np.int64)
@@ -160,20 +168,44 @@ def pack_crops_flat(crops, batch_size: int, max_w: int = 0, max_h: int = 0,
     quantum = flat_quantum(batch_size, max_h, max_w, bucket_bytes)
     total = -(-(pos + slack) // quantum) * quantum
     total = min(total, FLAT_OFFSET_LIMIT)
-    flat = np.zeros(total, np.uint8)
+    if pin_memory:
+        flat = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        buf = flat.numpy()
+    else:
+        flat = buf = np.empty(total, np.uint8)
+    # each byte is written once: the crops fill [0, pos), the rest is zeroed
+    buf[pos:] = 0
     for i, c in enumerate(crops[:n]):
-        copy_pixels(flat[offsets[i]: offsets[i] + c.size].reshape(c.shape), c)
+        copy_pixels(buf[offsets[i]: offsets[i] + c.size].reshape(c.shape), c)
     return flat, offsets.astype(np.int32), heights, widths
+
+
+def _packed_pixels(a: np.ndarray) -> bool:
+    """Whether ``a`` is an (H, W, 3) uint8 image whose rows are runs of
+    whole pixels, the layout a ``cv::Mat`` has (a row step of its own)."""
+    return (a.ndim == 3 and a.shape[2] == 3 and a.dtype == np.uint8
+            and a.strides[1:] == (3, 1) and a.strides[0] >= 3 * a.shape[1])
 
 
 def copy_pixels(dst: np.ndarray, src: np.ndarray) -> None:
     """``dst[...] = src`` for (H, W, C) images.  A view with reversed
-    channels (the BGR view of an RGB read) goes one channel at a time:
-    numpy copies it whole pixel by pixel, a 3-element inner loop, several
-    times slower than three strided passes."""
+    channels whose reversal has packed rows (the BGR view of an RGB read,
+    or of a window of one) goes in one pass, cv2's channel swap written
+    straight into ``dst`` where ``dst`` has packed rows too.  Any other
+    view goes one channel at a time: numpy copies it whole pixel by pixel,
+    a 3-element inner loop, several times slower than three strided
+    passes."""
     if src.flags.c_contiguous:
         dst[...] = src
         return
+    rgb = src[:, :, ::-1]
+    if _packed_pixels(rgb) and _packed_pixels(dst):
+        import cv2
+
+        # cv2 may hand back a new array instead of writing into dst
+        out = cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR, dst=dst)
+        if np.may_share_memory(out, dst):
+            return
     for ch in range(src.shape[-1]):
         dst[..., ch] = src[..., ch]
 

@@ -226,8 +226,9 @@ def replicate(mesh: Mesh, tree):
 
 def upload(array, device: torch.device) -> torch.Tensor:
     """A host array (numpy or a CPU tensor) on ``device``: on a card through
-    pinned memory, without waiting for the device, on the current stream;
-    on the CPU a view."""
+    pinned memory (a pinned tensor is copied from as it is, with no staging
+    copy), without waiting for the device, on the current stream; on the
+    CPU a view."""
     t = array if isinstance(array, torch.Tensor) else \
         torch.from_numpy(np.ascontiguousarray(array))
     if device.type != "cuda":

@@ -317,10 +317,11 @@ class EnsembleSegmenter:
         ``tables`` as tensors on ``device``, on its current stream.  On a
         card the tables go up as one buffer, split on the device, and both
         copies are made from pinned memory without waiting for the device,
-        so batch N+1 is uploaded and launched while batch N runs.  The
-        pinned buffers come from torch's host allocator, which reuses none
-        before the copy that reads it has run.  On the CPU these are views
-        of the arrays."""
+        so batch N+1 is uploaded and launched while batch N runs; a
+        ``data`` tensor pinned already (the slide loop's flat batch) is
+        copied from where it lies.  The pinned buffers come from torch's
+        host allocator, which reuses none before the copy that reads it has
+        run.  On the CPU these are views of the arrays."""
         if device.type != "cuda" or not tables:
             return [upload(a, device) for a in (data,) + tables]
         buf, shapes = pack_tables(tables)
@@ -440,7 +441,8 @@ class EnsembleSegmenter:
         return self.read_gathered(self.submit_batch_gather(
             padded, heights, widths, ys, xs))
 
-    def submit_batch_flat(self, flat: np.ndarray, offsets: np.ndarray,
+    def submit_batch_flat(self, flat: np.ndarray | torch.Tensor,
+                          offsets: np.ndarray,
                           heights: np.ndarray, widths: np.ndarray,
                           max_h: int, max_w: int):
         """Async flat-transfer forward (full-resolution class maps)."""
@@ -450,7 +452,8 @@ class EnsembleSegmenter:
 
         return self._run(forward, offsets, heights, widths, shared=flat)
 
-    def submit_batch_gather_flat(self, flat: np.ndarray, offsets: np.ndarray,
+    def submit_batch_gather_flat(self, flat: np.ndarray | torch.Tensor,
+                                 offsets: np.ndarray,
                                  heights: np.ndarray, widths: np.ndarray,
                                  ys: np.ndarray, xs: np.ndarray,
                                  max_h: int, max_w: int):
@@ -575,9 +578,16 @@ class FusedSlideSegmenter:
                 hs = ws = None
             elif (self.transfer == "flat"
                     and flat_bytes_needed(crops, max_w) <= FLAT_OFFSET_LIMIT):
+                # on a card the crops go straight into the pinned buffer
+                # that the upload copies from
+                pinned = self.ensemble.device.type == "cuda"
                 flat, offs, hs, ws = pack_crops_flat(crops, bs, max_w=max_w,
-                                                     max_h=max_h)
+                                                     max_h=max_h,
+                                                     pin_memory=pinned)
                 staged = (flat, offs, max_h, max_w)
+                nbytes = sum(c.size for c in crops)
+                count("seg.staged_bytes", nbytes)
+                count("seg.pinned_bytes", nbytes if pinned else 0)
             else:
                 # padded layout: by request, or per batch when a flat buffer
                 # would pass the offset limit
@@ -587,6 +597,7 @@ class FusedSlideSegmenter:
                 for i, c in enumerate(crops):
                     copy_pixels(staged[i, : c.shape[0], : c.shape[1]], c)
                     hs[i], ws[i] = c.shape[:2]
+                count("seg.staged_bytes", sum(c.size for c in crops))
             if not ds8:
                 return chunk, n, staged, hs, ws, None, None
             ys = np.zeros((bs, max_h // 8), np.int32)

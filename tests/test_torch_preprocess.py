@@ -58,17 +58,86 @@ def test_pack_crops_flat_of_bgr_views_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("view", ["contiguous", "bgr", "window"])
-def test_copy_pixels_is_an_assignment(view):
+def test_pack_crops_flat_into_a_torch_buffer_matches_jax(monkeypatch):
+    """With ``pin_memory`` the crops are written into a torch buffer from
+    ``torch.empty(..., pin_memory=True)`` (here a CPU buffer full of 7s,
+    as a reused block would hold old bytes), and that tensor is what comes
+    back: its bytes are the JAX package's, the zeroed tail included."""
+    real_empty = torch.empty
+    made = []
+
+    def empty(*size, pin_memory=False, **kw):
+        assert pin_memory
+        t = real_empty(*size, **kw).fill_(7)
+        made.append(t)
+        return t
+
+    rng = np.random.RandomState(10)
+    crops = [rng.randint(0, 255, (h, w, 3)).astype(np.uint8)[:, :, ::-1]
+             for h, w in [(300, 400), (512, 256), (1, 3), (123, 457)]]
+    want = jax_prep.pack_crops_flat(crops, 5, max_w=512, max_h=512)
+    monkeypatch.setattr(port_prep.torch, "empty", empty)
+    got = port_prep.pack_crops_flat(crops, 5, max_w=512, max_h=512,
+                                    pin_memory=True)
+    (buf,) = made
+    assert isinstance(got[0], torch.Tensor) and got[0] is buf
+    assert buf.dtype == torch.uint8 and buf.shape == want[0].shape
+    content = sum(c.size for c in crops)
+    assert content < len(want[0]) and not want[0][content:].any()
+    np.testing.assert_array_equal(buf.numpy(), want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def _cv2_allocates(monkeypatch):
+    """cv2's channel swap handing back a new array instead of writing into
+    its ``dst``, as cv2 does where it cannot use the array given."""
+    import cv2
+
+    monkeypatch.setattr(
+        cv2, "cvtColor",
+        lambda src, code, dst=None: np.ascontiguousarray(src[:, :, ::-1]))
+
+
+@pytest.mark.parametrize("view", [
+    "contiguous", "bgr", "window",
+    # the flat layout's destination: one run of bytes
+    "bgr_into_flat",
+    # a slot of the padded layout: rows max_w pixels apart
+    "bgr_into_padded_slot",
+    "one_pixel",
+    # a window of a read, so its rows are strided, into the flat layout
+    "strided_rows_into_flat",
+    # a destination cv2 cannot write in place: its channels reversed
+    "dst_channels_reversed",
+    # cv2 returns a new array: the copy falls back to three passes
+    "cv2_allocates"])
+def test_copy_pixels_is_an_assignment(view, monkeypatch):
     rng = np.random.RandomState(9)
     src = rng.randint(0, 255, (40, 70, 3)).astype(np.uint8)
-    src = {"contiguous": src, "bgr": src[:, :, ::-1],
-           "window": src[5:30, 10:60, ::-1]}[view]
-    dst = np.zeros((50, 80, 3), np.uint8)
-    want = dst.copy()
-    want[: src.shape[0], : src.shape[1]] = src
-    port_prep.copy_pixels(dst[: src.shape[0], : src.shape[1]], src)
-    np.testing.assert_array_equal(dst, want)
+    src = {"contiguous": src, "window": src[5:30, 10:60, ::-1],
+           "one_pixel": src[3:4, 7:8, ::-1],
+           "strided_rows_into_flat": src[5:30, 10:60, ::-1]}.get(
+               view, src[:, :, ::-1])
+    h, w = src.shape[:2]
+    # (the array the destination lies in, the destination in it)
+    full, place = {
+        "bgr_into_flat": ((h * w * 3 + 11,),
+                          lambda a: a[4: 4 + h * w * 3].reshape(h, w, 3)),
+        "strided_rows_into_flat": (
+            (h * w * 3 + 11,),
+            lambda a: a[4: 4 + h * w * 3].reshape(h, w, 3)),
+        "bgr_into_padded_slot": ((3, 64, 96, 3), lambda a: a[1, :h, :w]),
+        "dst_channels_reversed": ((50, 80, 3), lambda a: a[:h, :w, ::-1]),
+    }.get(view, ((50, 80, 3), lambda a: a[:h, :w]))
+    full = np.zeros(full, np.uint8)
+    want = full.copy()
+    place(want)[...] = src
+    if view == "cv2_allocates":
+        _cv2_allocates(monkeypatch)
+    port_prep.copy_pixels(place(full), src)
+    np.testing.assert_array_equal(full, want)
 
 
 def test_pack_crops_flat_refuses_over_limit(monkeypatch):

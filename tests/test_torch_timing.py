@@ -7,7 +7,10 @@ session it keeps spans and counts on ``time.perf_counter_ns`` with the
 recording thread, also when a span's body raises, in bounded buffers.
 Both slide segmenters (a tiny packed ESPNet ensemble, a tiny MiT) record
 the same names: crop reads and packing on the producer thread, the rest
-on the caller's, and one pair of slot counts per submitted batch."""
+on the caller's, and one pair of slot counts per submitted batch; the
+ESPNet loop also counts each staged batch's crop bytes, and those of them
+written straight into pinned memory (none on the CPU), on the producer
+thread."""
 import threading
 import time
 
@@ -30,6 +33,7 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 PRODUCER = {"seg.read", "seg.pack"}
 CONSUMER = {"seg.stage_wait", "seg.upload", "seg.launch",
             "seg.result_wait", "seg.paste"}
+STAGED = {"seg.staged_bytes", "seg.pinned_bytes"}
 BATCH = 4
 # nine boxes with pixels (three batches of four: 9 of 12 slots) and one
 # without, which neither path reads or counts
@@ -227,11 +231,20 @@ def test_the_slide_loops_record_every_stage(segmenter):
     batches = -(-crops // BATCH)
     by_name = {}
     for name, _, n, tid in timing.counts():
-        assert tid == caller
+        # slots where a batch is submitted, bytes where it is staged
+        assert (tid != caller) == (name in STAGED), name
         by_name.setdefault(name, []).append(n)
     assert sum(by_name["seg.slots_used"]) == crops == 9
     assert sum(by_name["seg.slots_computed"]) == batches * BATCH == 12
     assert len(by_name["seg.slots_used"]) == batches
+    if isinstance(segmenter, fused.FusedSlideSegmenter):
+        staged = sum((x2 - x1) * (y2 - y1) * 3
+                     for x1, y1, x2, y2 in fused.crop_boxes(dets))
+        assert sum(by_name["seg.staged_bytes"]) == staged
+        assert by_name["seg.pinned_bytes"] == [0] * batches
+        assert len(by_name["seg.staged_bytes"]) == batches
+    else:
+        assert not STAGED & set(by_name)
     names = [r[0] for r in recs]
     # one upload, launch, result wait and paste a batch, one read span a
     # batch (ESPNet) or a crop (SegFormer)
